@@ -1,0 +1,256 @@
+"""REST API application — the reference app's v2 contract, this slice.
+
+Counterpart of ``imatch_tpu/serving/app.py`` ``create_app`` for the main
+path: ``/api/upload``, ``/api/search/text`` (POST and GET),
+``/api/search/image``, ``/api/search/multimodal``, ``/api/images``,
+``/api/image/{id}`` and ``/api/health``, with the same responses (ids,
+409 on a duplicate, 422 for string fields sent as file parts, ``limit=0``
+-> up to 1000). The other routes of the JAX app answer 501 and name the
+ROADMAP.md item that will bring them.
+
+Uploads decode with PIL; the JAX app decodes through its C++ loader pool,
+which gives the same pixels for lossless formats.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import logging
+from typing import List, Optional
+
+from PIL import Image
+
+from imatch_tpu_torch.device import DeviceLike
+from imatch_tpu_torch.pipeline import search as search_mod
+from imatch_tpu_torch.pipeline.ingest import process_image
+from imatch_tpu_torch.pipeline.state import AppState
+from imatch_tpu_torch.serving.asgi import App, JSONResponse, UploadFile
+
+logger = logging.getLogger("imatch.api")
+
+CORS_ORIGINS = [
+    "http://localhost:3000",
+    "http://127.0.0.1:3000",
+    "http://localhost:8000",
+    "*",
+]
+
+# Routes of the JAX app that later slices bring, with the ROADMAP item.
+_LATER_ROUTES = [
+    ("POST", "/api/upload-folder", "Queue 1 step 6 (process_batch, bulk ingest)"),
+    ("POST", "/api/search/batch", "Queue 1 step 7 (the remaining routes)"),
+    ("POST", "/api/search/image-batch", "Queue 1 step 7 (the remaining routes)"),
+    ("PUT", "/api/metadata/{image_id}", "Queue 1 step 7 (the remaining routes)"),
+    ("GET", "/api/filters", "Queue 1 step 10 (Moondream captioner and filters)"),
+    ("POST", "/api/filters", "Queue 1 step 10 (Moondream captioner and filters)"),
+    ("POST", "/api/filters/batch", "Queue 1 step 10 (Moondream captioner and filters)"),
+    ("DELETE", "/api/filters/{filter_query}", "Queue 1 step 10 (Moondream captioner and filters)"),
+    ("GET", "/api/filter-progress", "Queue 1 step 10 (Moondream captioner and filters)"),
+    ("POST", "/api/reset", "Queue 1 step 7 (the remaining routes)"),
+    ("POST", "/search", "Queue 1 step 7 (the remaining routes)"),
+    ("POST", "/upload-samples", "Queue 1 step 6 (process_batch, bulk ingest)"),
+    ("GET", "/api/metrics", "Queue 1 step 13 (operations surface)"),
+    ("POST", "/api/profile/start", "Queue 1 step 13 (operations surface)"),
+    ("POST", "/api/profile/stop", "Queue 1 step 13 (operations surface)"),
+    ("GET", "/", "Queue 1 step 7 (the remaining routes: web UI)"),
+    ("GET", "/manage", "Queue 1 step 7 (the remaining routes: web UI)"),
+]
+
+
+class _FieldTypeError(ValueError):
+    def __init__(self, field: str):
+        super().__init__(f"field {field!r} must be a string")
+        self.field = field
+
+
+def _form_str(form, key: str, default=None):
+    """A string form field: absent -> default; sent as a file part ->
+    _FieldTypeError (a 422), never an opaque 500."""
+    v = form.get(key)
+    if v is None:
+        return default
+    if isinstance(v, str):
+        return v
+    raise _FieldTypeError(key)
+
+
+def _parse_int(v, default: int) -> int:
+    try:
+        return int(v)
+    except (TypeError, ValueError):
+        return default
+
+
+def _parse_float(v, default: float) -> float:
+    try:
+        return float(v)
+    except (TypeError, ValueError):
+        return default
+
+
+def _open_upload(file: UploadFile) -> Image.Image:
+    with Image.open(io.BytesIO(file.content)) as im:
+        return im.convert("RGB")
+
+
+def _passes_filters(metadata: dict, selected: List[str]) -> bool:
+    """AND semantics: every selected filter answered 'yes'."""
+    raw = metadata.get("filter_results_json")
+    if not raw:
+        return False
+    try:
+        results = json.loads(raw)
+    except ValueError:
+        return False
+    for f in selected:
+        ans = results.get(f)
+        if not isinstance(ans, str) or ans.strip().lower() != "yes":
+            return False
+    return True
+
+
+def apply_search_filters(results: List[dict], filters: List[str]) -> List[dict]:
+    """Route-level AND post-pass over search results."""
+    if not filters:
+        return results
+    return [r for r in results if _passes_filters(r, filters)]
+
+
+def _later(item: str):
+    def handler(req, **_):
+        return JSONResponse(
+            {
+                "success": False,
+                "error": f"not ported to imatch_tpu_torch yet: ROADMAP.md {item}",
+            },
+            501,
+        )
+
+    return handler
+
+
+def create_app(
+    state: Optional[AppState] = None, root: str = ".", device: DeviceLike = None
+) -> App:
+    if state is None:
+        state = AppState(root=root, device=device)
+    app = App(cors_origins=CORS_ORIGINS)
+    app.state = state
+    app.mount_static("/static", state.static_dir)
+
+    @app.post("/api/upload")
+    def upload(req):
+        form = req.form()
+        file = form.get("file")
+        if not isinstance(file, UploadFile):
+            return JSONResponse({"success": False, "error": "file field required"}, 422)
+        try:
+            description = _form_str(form, "description")
+            custom_metadata = _form_str(form, "custom_metadata")
+        except _FieldTypeError as e:
+            return JSONResponse({"success": False, "error": str(e)}, 422)
+        try:
+            metadata, is_new = process_image(
+                state,
+                image=_open_upload(file),
+                filename=file.filename,
+                description=description,
+                custom_metadata=custom_metadata,
+            )
+        except Exception as e:
+            logger.error("upload error: %s", e)
+            return JSONResponse({"success": False, "error": str(e)}, 500)
+        if is_new:
+            return {"success": True, "metadata": metadata}
+        return JSONResponse(
+            {
+                "success": False,
+                "error": "Duplicate image",
+                "message": "This image already exists in the database",
+                "metadata": metadata,
+            },
+            409,
+        )
+
+    @app.post("/api/search/image")
+    def search_image(req):
+        form = req.form()
+        file = form.get("file")
+        if not isinstance(file, UploadFile):
+            return JSONResponse({"success": False, "error": "file field required"}, 422)
+        filters = form.getlist("filters")
+        limit = _parse_int(form.get("limit"), 10)
+        results = search_mod.search_by_image(state, _open_upload(file), limit=limit)
+        return {"results": apply_search_filters(results, filters)}
+
+    def _text_results(query: str, filters: List[str], limit: int) -> dict:
+        if not query.strip() and filters:
+            # empty query + filters -> every image, newest first
+            results = search_mod.get_all_images_with_limit(state, limit=limit)
+        else:
+            results = search_mod.search_by_text(state, query, limit=limit)
+        return {"results": apply_search_filters(results, filters)}
+
+    @app.post("/api/search/text")
+    def search_text(req):
+        form = req.form()
+        try:
+            query = _form_str(form, "query", "")
+        except _FieldTypeError as e:
+            return JSONResponse({"success": False, "error": str(e)}, 422)
+        return _text_results(
+            query, form.getlist("filters"), _parse_int(form.get("limit"), 10)
+        )
+
+    @app.get("/api/search/text")
+    def search_text_get(req):
+        return _text_results(
+            req.query_param("query", ""),
+            req.query.get("filters", []),
+            _parse_int(req.query_param("limit"), 10),
+        )
+
+    @app.post("/api/search/multimodal")
+    def search_multimodal(req):
+        form = req.form()
+        file = form.get("file")
+        if not isinstance(file, UploadFile):
+            return JSONResponse({"success": False, "error": "file field required"}, 422)
+        try:
+            query = _form_str(form, "query", "")
+        except _FieldTypeError as e:
+            return JSONResponse({"success": False, "error": str(e)}, 422)
+        weight_image = _parse_float(form.get("weight_image"), 0.5)
+        filters = form.getlist("filters")
+        limit = _parse_int(form.get("limit"), 10)
+        results = search_mod.search_multimodal(
+            state, _open_upload(file), query, weight_image=weight_image, limit=limit
+        )
+        return {"results": apply_search_filters(results, filters)}
+
+    @app.get("/api/images")
+    def get_images(req):
+        with state.lock:
+            return {"images": list(state.image_metadata.values())}
+
+    @app.get("/api/image/{image_id}")
+    def get_image(req, image_id):
+        md = state.image_metadata.get(image_id)
+        if md is None:
+            return JSONResponse({"success": False, "error": "Image not found"}, 404)
+        return {"success": True, "image": md}
+
+    @app.get("/api/health")
+    def health(req):
+        return {
+            "status": "ok",
+            "images": state.store.count(),
+            "captioner": getattr(state.captioner, "available", False),
+            "model": state.embedder.cfg.name if state.embedder else None,
+        }
+
+    for method, path, item in _LATER_ROUTES:
+        app.route(path, [method])(_later(item))
+
+    return app
