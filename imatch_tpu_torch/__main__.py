@@ -7,6 +7,7 @@ Env config (the same names as run.py):
   IMATCH_CLIP_CHECKPOINT  local HF checkpoint dir for real weights
   IMATCH_INDEX_ENGINE     tilemax (default) | pallas | auto
   IMATCH_SCORE_DTYPE      bf16 (default) | fp32
+  IMATCH_EMBED_QUANT      int8 for the W8A8 image tower (default unset)
   IMATCH_DEVICE           cuda (default) | cpu
 
 On ``cuda`` the CUDA kernels are built (nvcc, ops/kernels/_build.py) and

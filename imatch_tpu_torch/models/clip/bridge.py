@@ -16,13 +16,13 @@ at fp32 (tests/test_torch_clip.py).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from imatch_tpu_torch.models.clip.configs import CLIPConfig
-from imatch_tpu_torch.models.clip.model import CLIPModel, Encoder, cast_compute
+from imatch_tpu_torch.models.clip.model import CLIPModel, Encoder, quantize_and_cast
 
 
 def _f32(x) -> np.ndarray:
@@ -61,10 +61,16 @@ def _load_encoder(enc: Encoder, tree: Dict) -> None:
 
 @torch.no_grad()
 def params_from_numpy(
-    tree: Dict, cfg: CLIPConfig, device="cpu", dtype: torch.dtype = torch.float32
+    tree: Dict,
+    cfg: CLIPConfig,
+    device="cpu",
+    dtype: torch.dtype = torch.float32,
+    quant: Optional[str] = None,
 ) -> CLIPModel:
     """A CLIPModel on ``device`` holding ``tree``'s weights in ``dtype``
-    (LayerNorms in fp32)."""
+    (LayerNorms in fp32). ``quant="int8"`` builds the W8A8 image encoder
+    from the tree's fp32 weights before the cast (clip/quant.py), as the
+    JAX package's ``quantize_vision_tower`` does from its params."""
     with torch.device("meta"):
         model = CLIPModel(cfg)
     model = model.to_empty(device=device).float()
@@ -85,7 +91,7 @@ def params_from_numpy(
     _set(tm.final_ln.bias, tt["final_ln"]["bias"])
     _set(tm.projection.weight, _f32(tt["projection"]).T)
     _set(model.logit_scale, _f32(tree["logit_scale"]).reshape(()))
-    return cast_compute(model, dtype)
+    return quantize_and_cast(model, dtype, quant)
 
 
 def _np(t: torch.Tensor) -> np.ndarray:

@@ -104,17 +104,26 @@ class VisionTower(nn.Module):
         self.post_ln = LayerNorm32(d, eps=cfg.layer_norm_eps)
         self.projection = nn.Linear(d, projection_dim, bias=False)
 
-    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) preprocessed pixels -> (B, proj) unnormalised fp32."""
+    def stem(self, pixels: torch.Tensor) -> torch.Tensor:
+        """Patch conv + CLS + positions + pre-LN: (B, H, W, 3) -> (B, S, D).
+        One definition for the bf16 and the W8A8 encoder (clip/quant.py)."""
         w = self.patch_embedding.weight
         x = self.patch_embedding(pixels.to(w.dtype).permute(0, 3, 1, 2))
         b = x.shape[0]
         x = x.flatten(2).transpose(1, 2)  # (B, patches, D), row-major patches
         cls = self.class_embedding.to(x.dtype).expand(b, 1, -1)
         x = torch.cat([cls, x], dim=1) + self.position_embedding.to(x.dtype)
-        x = self.encoder(self.pre_ln(x), causal=False)
-        pooled = self.post_ln(x[:, 0, :])
-        return self.projection(pooled).float()
+        return self.pre_ln(x)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """Post-LN of the CLS token and projection -> (B, proj) fp32."""
+        return self.projection(self.post_ln(x[:, 0, :])).float()
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) preprocessed pixels -> (B, proj) unnormalised fp32.
+        ``self.encoder`` is the bf16 ``Encoder`` or, once
+        ``quantize_vision_tower`` ran, the W8A8 one."""
+        return self.head(self.encoder(self.stem(pixels), causal=False))
 
 
 class TextTower(nn.Module):
@@ -161,11 +170,15 @@ def init_random(
     device: torch.device,
     dtype: torch.dtype,
     generator: torch.Generator,
+    quant: Optional[str] = None,
 ) -> CLIPModel:
     """The JAX init's distribution (normal(0.02) weights, zero biases, unit
     LayerNorms) from a torch Generator. Its numbers differ from
     ``init_params(jax.random.key(0))``: torch cannot reproduce JAX's RNG,
-    so parity runs carry the JAX tree across with the bridge instead."""
+    so parity runs carry the JAX tree across with the bridge instead.
+    The weights are drawn in fp32 whatever ``dtype``, so one seed gives
+    the same master weights at every dtype; ``quant="int8"`` quantizes
+    the image encoder from them before the cast (clip/quant.py)."""
     with torch.device("meta"):
         model = CLIPModel(cfg)
     model = model.to_empty(device=device)
@@ -180,6 +193,22 @@ def init_random(
                     p.zero_()
                 else:
                     p.normal_(0.0, 0.02, generator=generator)
+    return quantize_and_cast(model, dtype, quant)
+
+
+def quantize_and_cast(
+    model: CLIPModel, dtype: torch.dtype, quant: Optional[str] = None
+) -> CLIPModel:
+    """``cast_compute`` after an optional ``quant="int8"`` of the image
+    encoder, which reads the fp32 master weights: quantizing bf16-rounded
+    ones would give other codes than the JAX package's."""
+    if quant == "int8":
+        # clip/quant.py builds on this module, so it is imported here
+        from imatch_tpu_torch.models.clip.quant import quantize_vision_tower
+
+        quantize_vision_tower(model.vision)
+    elif quant not in (None, "", "none"):
+        raise ValueError(f"quant={quant!r}: expected 'int8' or None")
     return cast_compute(model, dtype)
 
 

@@ -1,15 +1,19 @@
-"""REST API application — the reference app's v2 contract, this slice.
+"""REST API application — the reference app's v2 contract, the routes
+ported so far.
 
-Counterpart of ``imatch_tpu/serving/app.py`` ``create_app`` for the main
-path: ``/api/upload``, ``/api/search/text`` (POST and GET),
-``/api/search/image``, ``/api/search/multimodal``, ``/api/images``,
+Counterpart of ``imatch_tpu/serving/app.py`` ``create_app`` for
+``/api/upload``, ``/api/upload-folder``, ``/api/search/text`` (POST and
+GET), ``/api/search/image``, ``/api/search/multimodal``, ``/api/images``,
 ``/api/image/{id}`` and ``/api/health``, with the same responses (ids,
 409 on a duplicate, 422 for string fields sent as file parts, ``limit=0``
--> up to 1000). The other routes of the JAX app answer 501 and name the
-ROADMAP.md item that will bring them.
+-> up to 1000, the folder's per-file statuses and counts). The other
+routes of the JAX app answer 501 and name the ROADMAP.md item that will
+bring them.
 
-Uploads decode with PIL; the JAX app decodes through its C++ loader pool,
-which gives the same pixels for lossless formats.
+Uploads decode with PIL, a folder's files on a thread pool: the JAX app's
+loader takes this path where its C++ decoder is not built, and both give
+the same pixels for lossless formats. There is no snapshot after an
+upload while the store's persistence is not ported.
 """
 
 from __future__ import annotations
@@ -17,13 +21,16 @@ from __future__ import annotations
 import io
 import json
 import logging
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
+import numpy as np
 from PIL import Image
 
 from imatch_tpu_torch.device import DeviceLike
 from imatch_tpu_torch.pipeline import search as search_mod
-from imatch_tpu_torch.pipeline.ingest import process_image
+from imatch_tpu_torch.pipeline.ingest import process_batch, process_image
 from imatch_tpu_torch.pipeline.state import AppState
 from imatch_tpu_torch.serving.asgi import App, JSONResponse, UploadFile
 
@@ -38,7 +45,6 @@ CORS_ORIGINS = [
 
 # Routes of the JAX app that later slices bring, with the ROADMAP item.
 _LATER_ROUTES = [
-    ("POST", "/api/upload-folder", "Queue 1 step 6 (process_batch, bulk ingest)"),
     ("POST", "/api/search/batch", "Queue 1 step 7 (the remaining routes)"),
     ("POST", "/api/search/image-batch", "Queue 1 step 7 (the remaining routes)"),
     ("PUT", "/api/metadata/{image_id}", "Queue 1 step 7 (the remaining routes)"),
@@ -49,7 +55,7 @@ _LATER_ROUTES = [
     ("GET", "/api/filter-progress", "Queue 1 step 10 (Moondream captioner and filters)"),
     ("POST", "/api/reset", "Queue 1 step 7 (the remaining routes)"),
     ("POST", "/search", "Queue 1 step 7 (the remaining routes)"),
-    ("POST", "/upload-samples", "Queue 1 step 6 (process_batch, bulk ingest)"),
+    ("POST", "/upload-samples", "Queue 1 step 7 (the remaining routes)"),
     ("GET", "/api/metrics", "Queue 1 step 13 (operations surface)"),
     ("POST", "/api/profile/start", "Queue 1 step 13 (operations surface)"),
     ("POST", "/api/profile/stop", "Queue 1 step 13 (operations surface)"),
@@ -92,6 +98,17 @@ def _parse_float(v, default: float) -> float:
 def _open_upload(file: UploadFile) -> Image.Image:
     with Image.open(io.BytesIO(file.content)) as im:
         return im.convert("RGB")
+
+
+def _decode_rgb(content: bytes) -> np.ndarray:
+    with Image.open(io.BytesIO(content)) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def _parse_bool(v, default=False) -> bool:
+    if v is None:
+        return default
+    return str(v).strip().lower() in ("true", "1", "yes", "on")
 
 
 def _passes_filters(metadata: dict, selected: List[str]) -> bool:
@@ -172,6 +189,53 @@ def create_app(
             },
             409,
         )
+
+    @app.post("/api/upload-folder")
+    def upload_folder(req):
+        form = req.form()
+        files = [f for f in form.getlist("files") if isinstance(f, UploadFile)]
+        results = []
+        todo = []
+        for f in files:
+            if not f.content:
+                results.append({"filename": f.filename, "status": "skipped", "reason": "Empty file"})
+            else:
+                todo.append(f)
+        images, names, raws = [], [], []
+        if todo:
+            workers = min(8, os.cpu_count() or 1, len(todo))
+            with ThreadPoolExecutor(workers, thread_name_prefix="imatch-decode") as pool:
+                futures = [pool.submit(_decode_rgb, f.content) for f in todo]
+                for f, fut in zip(todo, futures):
+                    try:
+                        images.append(fut.result())
+                        names.append(f.filename)
+                        raws.append(f.content)
+                    except Exception as e:
+                        results.append(
+                            {"filename": f.filename, "status": "error", "reason": f"Cannot open image: {e}"}
+                        )
+        batch = process_batch(
+            state, images, names, remove_bg=_parse_bool(form.get("remove_bg")), raw_bytes=raws
+        )
+        for r in batch:
+            entry = {"filename": r["filename"], "status": r["status"]}
+            if r["status"] == "success":
+                entry["id"] = r["id"]
+            elif r["status"] == "skipped":
+                entry["reason"] = r.get("message", "Duplicate image")
+                entry["id"] = r.get("id")
+            else:
+                entry["reason"] = r.get("error", "error")
+            results.append(entry)
+        return {
+            "success": True,
+            "total": len(files),
+            "successful": sum(r["status"] == "success" for r in results),
+            "skipped": sum(r["status"] == "skipped" for r in results),
+            "failed": sum(r["status"] == "error" for r in results),
+            "results": results,
+        }
 
     @app.post("/api/search/image")
     def search_image(req):

@@ -56,7 +56,9 @@ def test_every_module_imports_without_jax_or_imatch_tpu():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 25  # every module was visited
+    # every module was visited, ops/quant.py, ops/kernels/quantize.py and
+    # models/clip/quant.py among them
+    assert int(proc.stdout.split()[-1]) >= 30
 
 
 def test_blocker_really_blocks():

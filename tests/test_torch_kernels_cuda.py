@@ -9,15 +9,29 @@ which sets JAX up:
 
 Tolerances: fp32 2e-5 (tests/test_pallas.py's bar); bf16 2 bf16 ulps at
 magnitude 1 (2 * 2^-7), against the plain version in fp32 on the same
-bf16 inputs; tile maxima 1e-5 (fp32 sums in another order).
+bf16 inputs; tile maxima 1e-5 (fp32 sums in another order); int8 codes of
+K3 and K4 within 1 LSB of the plain version with under 1e-3 (K3) or 2e-3
+(K4) of them differing, scales within rtol 1e-6
+(tests/test_quant_kernel.py's bars; K4's rsqrtf is not correctly rounded).
 """
 
 import pytest
 import torch
 
+from imatch_tpu_torch.device import resolve_device
 from imatch_tpu_torch.index.search import prepare_device_corpus, tilemax_topk
+from imatch_tpu_torch.models.clip.configs import TINY
+from imatch_tpu_torch.models.clip.model import init_random
+from imatch_tpu_torch.models.clip.quant import encode_image_w8a8
 from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha, flash_mha_plain
+from imatch_tpu_torch.ops.kernels.quantize import (
+    ln_quant_rows,
+    ln_quant_rows_plain,
+    quant_rows,
+    quant_rows_plain,
+)
 from imatch_tpu_torch.ops.kernels.topk import NEG_INF, tile_max, tile_max_plain
+from imatch_tpu_torch.ops.quant import qdot_int8, quantize_weight_int8
 
 BF16_TOL = 2 * 2.0**-7
 
@@ -110,3 +124,80 @@ def test_engine_matches_brute_force_on_card(cuda):
     bs, bi = torch.sort(bs, dim=1, descending=True, stable=True)
     assert torch.equal(i, bi[:, :10])
     torch.testing.assert_close(s, bs[:, :10], rtol=1e-5, atol=1e-5)
+
+
+def _assert_codes(got, ref, frac):
+    (q, s), (qr, sr) = got, ref
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert q.shape == qr.shape and s.shape == sr.shape
+    torch.testing.assert_close(s, sr, rtol=1e-6, atol=0)
+    diff = (q.int() - qr.int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff != 0).float().mean()) < frac
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 64), (257, 1024), (3, 257, 4096), (1000, 104)])
+def test_quantize_kernels_match_plain(cuda, dtype, shape):
+    g = torch.Generator(device=cuda).manual_seed(shape[-1])
+    x = (torch.randn(shape, generator=g, device=cuda) * 3).to(dtype)
+    x.view(-1, shape[-1])[-1] = 0  # a zero row: scale 1, codes 0 (K3)
+    d = shape[-1]
+    gamma = torch.randn(d, generator=g, device=cuda) * 0.5 + 1
+    beta = torch.randn(d, generator=g, device=cuda) * 0.1
+    before = (quant_rows.launches, ln_quant_rows.launches)
+    got3 = quant_rows(x)
+    got4 = ln_quant_rows(x, gamma, beta, 1e-5)
+    torch.cuda.synchronize()
+    assert (quant_rows.launches, ln_quant_rows.launches) == (before[0] + 1, before[1] + 1)
+    _assert_codes(got3, quant_rows_plain(x), 1e-3)
+    _assert_codes(got4, ln_quant_rows_plain(x, gamma, beta, 1e-5), 2e-3)
+    assert float(got3[1].view(-1)[-1]) == 1.0 and not got3[0].view(-1, d)[-1].any()
+
+
+def test_quantize_kernels_raise_instead_of_falling_back(cuda):
+    before = (quant_rows.launches, ln_quant_rows.launches)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        quant_rows(torch.ones((4, 12), device=cuda))
+    with pytest.raises(TypeError):
+        quant_rows(torch.ones((4, 64), device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_rows(torch.ones((64, 4), device=cuda).t())
+    with pytest.raises(ValueError, match="gamma"):
+        ln_quant_rows(torch.ones((4, 64), device=cuda), torch.ones(64, device=cuda).bfloat16(), torch.zeros(64, device=cuda))
+    assert (quant_rows.launches, ln_quant_rows.launches) == before
+
+
+def test_qdot_int8_exact_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    xi = torch.randint(-127, 128, (2, 257, 1024), generator=g, device=cuda, dtype=torch.int8)
+    ascale = torch.rand((2, 257, 1), generator=g, device=cuda)
+    w = quantize_weight_int8(torch.randn((1024, 4096), generator=g, device=cuda))
+    wq = w["q"].t().contiguous().t()  # the W8A8 layer's layout
+    bias = torch.randn(4096, generator=g, device=cuda)
+    got = qdot_int8(xi, ascale, wq, w["s"], bias, torch.float32)
+    acc = (xi.double().reshape(-1, 1024) @ w["q"].double()).reshape(2, 257, 4096)
+    ref = ((acc.float() * ascale) * w["s"]) + bias
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_w8a8_tower_on_card_matches_cpu(cuda):
+    resolve_device(cuda)  # full fp32 products: no TF32 in the patch convolution
+    model = init_random(
+        TINY,
+        device="cpu",
+        dtype=torch.float32,
+        generator=torch.Generator().manual_seed(0),
+        quant="int8",
+    )
+    pixels = torch.randn((4, 32, 32, 3), generator=torch.Generator().manual_seed(1))
+    want = encode_image_w8a8(model, pixels)
+    before = (quant_rows.launches, ln_quant_rows.launches, flash_mha.launches)
+    got = encode_image_w8a8(model.to(cuda), pixels.to(cuda)).cpu()
+    n = TINY.vision.num_layers
+    assert (quant_rows.launches, ln_quant_rows.launches, flash_mha.launches) == (
+        before[0] + 2 * n,
+        before[1] + 2 * n,
+        before[2] + n,
+    )
+    assert float((got * want).sum(-1).min()) >= 0.9999

@@ -190,6 +190,6 @@ def test_health_and_routes_still_to_port(apps):
     _, pa = apps
     h = pa.get("/api/health").json()
     assert h["status"] == "ok" and h["model"] == "tiny" and h["captioner"] is False
-    r = pa.post("/api/upload-folder")
+    r = pa.post("/api/search/batch")
     assert r.status_code == 501 and "ROADMAP.md" in r.json()["error"]
     assert pa.get("/api/nope").status_code == 404
