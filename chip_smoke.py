@@ -8,17 +8,23 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. Identify the card (nvidia-smi name and power limit, torch and CUDA
-   versions, whether PIL is installed); print the bounds of the kernels
-   not ported yet (K5, K6), computed from their scripts' shapes.
-2. Build the CUDA kernels from imatch_tpu_torch/csrc/ with nvcc.
+   versions, whether PIL is installed).
+2. Build the CUDA kernels from imatch_tpu_torch/csrc/ with nvcc, one
+   process a source, all started together.
 3. K2 (flash attention) against its plain PyTorch version at the CLIP
    towers' shapes, bf16 and fp32, with a fully masked case.
 4. K1 (tile max) against its plain version, and the K1 engine against a
    full fp32 brute-force top-k, on a 2^20 x 768 corpus with tombstones and
-   duplicate rows.
+   duplicate rows; then K1's int8 variant, bit-identical to its plain
+   version, and the int8 engine against the brute force, on the same
+   corpus at Q = 1, 8, 16.
 5. K3 (row quantize) and K4 (LayerNorm + quantize) against their plain
    versions at the W8A8 image tower's shapes (rows B x 257 for B = 1, 32,
    64; D 1024 and 4096), bf16 and fp32, with a zero row.
+5b. K5 (int4 tile max) and K6 (tile max over a transposed corpus) against
+   their plain versions at their scripts' shapes: 8 queries over 2^20 rows
+   of 512 int4 codes; 8 queries over a (640, 2^20) and a (528, 2^20) bf16
+   corpus.
 6. The first slice end to end: the port's app at longclip-l14-248 (random
    weights from a seed) served over HTTP by the port's server, holding a
    2^20-row store; uploads, a duplicate, and text, image and multimodal
@@ -29,16 +35,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    tail of 5, duplicates, an empty and an undecodable file), then an image
    and a text search, with the K1-K4 launch counts read around them, and
    the fused chunk's stages timed (W8A8 beside the bf16 tower at B = 64).
-8. A cut-depth vit-b32 tower on the card against the same weights on the
+8. The third slice end to end: the app at longclip-l14-248 over a store of
+   2^20 rows, once with IMATCH_SCORE_DTYPE=int8 and once with
+   IMATCH_INDEX_ENGINE=tilemax-host; text, image and multimodal searches
+   over HTTP whose ids must equal a full fp32 brute force and the bf16
+   engine on the same rows, with the K1 and K1-int8 launch counts read
+   around them; then an IMATCH_INDEX_ENGINE=auto store whose device budget
+   makes its build escalate to tilemax-host.
+9. A cut-depth vit-b32 tower on the card against the same weights on the
    CPU, and the W8A8 longclip tower against the fp32 tower on the card.
+10. The two experiment entry points, python -m imatch_tpu_torch.scripts.
+   exp_int4_kernel (K5) and exp_pallas_search (K6 beside K1), run to the
+   end with the K5 and K6 launch counts read around them.
 
-The line before the last is {"kernels": [...]} with each kernel's
-measured and bound times; the last line is the device JSON. It imports
-nothing of JAX or of the JAX package.
+The last four lines are the two scripts' JSON lines, {"kernels": [...]}
+with each kernel's measured and bound times, and the device JSON. It
+imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import io
 import json
@@ -50,7 +67,8 @@ import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 CUDA-core rate
+# dense bf16 tensor-core, fp32 CUDA-core and dense int8 tensor-core rates
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 # bf16 tolerance: 2 bf16 ulps at magnitude 1 (2 * 2^-7) absolute, plus half
 # an ulp relative for outputs above 1, against fp32 math on the same inputs.
@@ -65,19 +83,9 @@ def log(msg: str) -> None:
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of one call, by CUDA events over ``iters`` calls."""
-    import torch
+    from imatch_tpu_torch.scripts._common import cuda_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return cuda_ms(fn, iters, warmup)
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype_name: str):
@@ -92,13 +100,9 @@ def bound_ms(n_bytes: float, n_ops: float, dtype_name: str):
 def phase_identify() -> None:
     import torch
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True,
-        text=True,
-        check=True,
-    ).stdout.strip().splitlines()[0]
-    log(smi)
+    from imatch_tpu_torch.scripts._common import card
+
+    log(card(torch.device("cuda")))  # nvidia-smi's name and power limit
     log(
         f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}"
@@ -109,22 +113,6 @@ def phase_identify() -> None:
         log(f"PIL {PIL.__version__} installed")
     except ImportError:
         log("PIL not installed")
-
-
-def unported_bounds() -> dict:
-    """Bounds of the TPU kernels not ported yet, from their scripts' own
-    shapes (bf16 tensor-core peak, HBM rate): computed, not measured.
-    K5: scripts/exp_int4_kernel.py, 8 queries x 512 over 2^20 int4 rows
-    packed (N, 256) int8 with an (8, N) bf16 side array. K6:
-    scripts/exp_pallas_search.py, 8 queries over a transposed (640, 2^20)
-    bf16 corpus (its shipped padding). Both at tile_n 2048."""
-    n, q, tile_n = 1 << 20, 8, 2048
-    out_bytes = q * (n // tile_n) * 4
-    k5 = bound_ms(n * 256 + q * n * 2 + q * 512 * 2 + out_bytes, 2 * q * n * 512, "bfloat16")
-    k6 = bound_ms(640 * n * 2 + q * 640 * 2 + out_bytes, 2 * q * n * 640, "bfloat16")
-    bounds = {"K5_bound_ms": k5[0], "K5_bound_by": k5[1], "K6_bound_ms": k6[0], "K6_bound_by": k6[1]}
-    log("bounds from shapes, not measured: " + json.dumps(bounds))
-    return bounds
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -416,6 +404,196 @@ def phase_k34() -> list:
     return rows
 
 
+# -- phase 4, int8 --------------------------------------------------------------
+
+
+def _k1_int8_bound(q, n, dp, tile_n):
+    n_bytes = n * dp + 4 * n + n + q * dp + 4 * q + q * (n // tile_n) * 4
+    return bound_ms(n_bytes, 2 * q * n * dp, "int8")
+
+
+def k1_int8_case(dc, corpus, valid, nq, k=10) -> dict:
+    """K1's int8 variant against its plain version (bit for bit), and the
+    int8 engine against the fp32 brute force, at Q = nq."""
+    import torch
+
+    from imatch_tpu_torch.index.search import _int8_queries, tilemax_topk
+    from imatch_tpu_torch.ops.kernels.topk import NEG_INF, tile_max_int8, tile_max_int8_plain
+
+    n, d = corpus.shape
+    tile_n = dc.tile_n
+    queries = corpus[:nq].clone()
+    qi, qscale = _int8_queries(queries, dc.scoring.shape[1])
+    args = (qi, dc.scoring, qscale, dc.scale, dc.valid, tile_n)
+    tm = tile_max_int8(*args)
+    torch.cuda.synchronize()
+    tm_ref = tile_max_int8_plain(*args)
+    identical = bool(torch.equal(tm, tm_ref))
+    s, i = tilemax_topk(queries, dc, k=k)
+    bs, bi = brute_force_topk(queries, corpus, valid, k)
+    ids_equal = bool(torch.equal(i, bi))
+    score_err = float((s - bs).abs().max())
+    qpad = torch.zeros((32, qi.shape[1]), dtype=torch.int8, device=qi.device)
+    qpad[:nq] = qi
+
+    def library():
+        # torch._int_mm takes a first dimension above 16: 32 padded rows
+        acc = torch._int_mm(qpad, dc.scoring.T)[:nq]
+        sc = acc.float() * qscale[:, None] * dc.scale[None, :]
+        return torch.where(dc.valid[None, :], sc, NEG_INF).view(nq, -1, tile_n).amax(2)
+
+    try:
+        library_ms = time_ms(library, iters=5)
+        note = "torch._int_mm (queries padded to 32 rows), then dequantize, mask and amax"
+    except RuntimeError as e:
+        library_ms, note = None, f"torch._int_mm refused: {e}"[:200]
+    bms, bound_by = _k1_int8_bound(nq, n, dc.scoring.shape[1], tile_n)
+    row = {
+        "n": n,
+        "d": d,
+        "q": nq,
+        "k": k,
+        "tile_n": tile_n,
+        "dtype": "int8",
+        "bit_identical": identical,
+        "max_abs_err": float((tm - tm_ref).abs().max()),
+        "ids_equal_brute_force": ids_equal,
+        "max_score_err": score_err,
+        "ok": identical and ids_equal and score_err <= 1e-5,
+        "kernel_ms": time_ms(lambda: tile_max_int8(*args)),
+        "plain_ms": time_ms(lambda: tile_max_int8_plain(*args), iters=5),
+        "library_ms": library_ms,
+        "library_note": note,
+        "engine_ms": time_ms(lambda: tilemax_topk(queries, dc, k=k), iters=5),
+        "bound_ms": bms,
+        "bound_by": bound_by,
+    }
+    log("K1 int8 " + json.dumps(row))
+    return row
+
+
+def phase_k1_int8() -> list:
+    """The int8 tier's phase 1 at the store's shapes: 2^20 x 768, tile 512,
+    margin 16, for one query, a batch of 8 and a chunk of 16."""
+    import torch
+
+    from imatch_tpu_torch.index.search import prepare_device_corpus
+
+    corpus, valid = make_corpus(1 << 20, 768)
+    dc = prepare_device_corpus(
+        corpus, valid, tile_n=512, score_dtype=torch.int8, margin=16, device="cuda"
+    )
+    rows = [k1_int8_case(dc, corpus, valid, nq) for nq in (1, 8, 16)]
+    del corpus, valid, dc
+    torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"K1's int8 variant or the int8 engine disagrees in {len(bad)} cases")
+    return rows
+
+
+# -- phase 5b ----------------------------------------------------------------
+
+
+def phase_k5() -> list:
+    """K5 at scripts/exp_int4_kernel.py's shapes: 8 bf16 queries of 512 over
+    2^20 rows packed (N, 256), a tombstone every 97th row, tile_n 512, 1024
+    and 2048; atol 1e-5 against the plain version (exact products, fp32
+    sums in another order). Timed at tile 2048 only, the kernels line's
+    shape: the script times every tile again in phase 10."""
+    import torch
+
+    from imatch_tpu_torch.ops.kernels.int4_topk import int4_tile_max, int4_tile_max_plain, pack_int4
+
+    n, d, q = 1 << 20, 512, 8
+    corpus, _ = make_corpus(n, d, seed=5)
+    valid = torch.arange(n, device="cuda") % 97 != 0
+    packed, side, _, _ = pack_int4(corpus, valid)
+    del corpus
+    g = torch.Generator(device="cuda").manual_seed(6)
+    qbf = torch.randn((q, d), generator=g, device="cuda")
+    qbf = (qbf / qbf.norm(dim=1, keepdim=True)).bfloat16()
+    rows = []
+    for tile_n in (512, 1024, 2048):
+        got = int4_tile_max(qbf, packed, side, tile_n)
+        torch.cuda.synchronize()
+        err = float((got - int4_tile_max_plain(qbf, packed, side, tile_n)).abs().max())
+        row = {
+            "n": n,
+            "d": d,
+            "q": q,
+            "tile_n": tile_n,
+            "max_abs_err": err,
+            "ok": err <= 1e-5 and bool(torch.isfinite(got).all()),
+        }
+        if tile_n == 2048:
+            # the bytes the function reads: the codes and side rows 0
+            # (scale) and 1 (validity); rows 2-7 of the side array are
+            # padding neither the kernel nor the plain version touches
+            n_bytes = n * (d // 2) + 2 * n * 2 + q * d * 2 + q * (n // tile_n) * 4
+            bms, bound_by = bound_ms(n_bytes, 2 * q * n * d, "bfloat16")
+            row.update(
+                kernel_ms=time_ms(lambda: int4_tile_max(qbf, packed, side, tile_n)),
+                plain_ms=time_ms(lambda: int4_tile_max_plain(qbf, packed, side, tile_n), iters=3),
+                library_ms=None,
+                library_note="no PyTorch call multiplies int4 codes (torch has no int4 matmul)",
+                bound_ms=bms,
+                bound_by=bound_by,
+            )
+        log("K5 " + json.dumps(row))
+        rows.append(row)
+    del packed, side
+    torch.cuda.empty_cache()
+    if not all(r["ok"] for r in rows):
+        raise AssertionError("K5 disagrees with its plain version")
+    return rows
+
+
+def phase_k6() -> list:
+    """K6 at scripts/exp_pallas_search.py's shapes: 8 bf16 queries over the
+    transposed 2^20-row corpus with the penalty feature, padded to 640
+    (tile_n 1024, 2048, 4096) and 528 (2048, 4096); atol 1e-5 against the
+    plain version (fp32 sums of exact products in another order). Timed at
+    640, tile 2048 only, the kernels line's shape: the script times the
+    others in phase 10."""
+    import torch
+
+    from imatch_tpu_torch.ops.kernels.topk_t import tile_max_t, tile_max_t_plain
+    from imatch_tpu_torch.scripts.exp_pallas_search import make_data
+
+    n, q = 1 << 20, 8
+    rows = []
+    for dp, tiles in ((640, (1024, 2048, 4096)), (528, (2048, 4096))):
+        scoring, qs = make_data(n, dp, "cuda")
+        st = scoring.T.contiguous()
+        del scoring
+        for tile_n in tiles:
+            got = tile_max_t(qs, st, tile_n)
+            torch.cuda.synchronize()
+            err = float((got - tile_max_t_plain(qs, st, tile_n)).abs().max())
+            row = {"n": n, "dp": dp, "q": q, "tile_n": tile_n, "max_abs_err": err, "ok": err <= 1e-5}
+            if (dp, tile_n) == (640, 2048):
+                n_bytes = dp * n * 2 + q * dp * 2 + q * (n // tile_n) * 4
+                bms, bound_by = bound_ms(n_bytes, 2 * q * n * dp, "bfloat16")
+                row.update(
+                    kernel_ms=time_ms(lambda: tile_max_t(qs, st, tile_n)),
+                    plain_ms=time_ms(lambda: tile_max_t_plain(qs, st, tile_n), iters=5),
+                    library_ms=time_ms(
+                        lambda: torch.matmul(qs, st).view(q, n // tile_n, tile_n).amax(2), iters=5
+                    ),
+                    library_note="torch.matmul (bf16 out) + amax on the transposed corpus",
+                    bound_ms=bms,
+                    bound_by=bound_by,
+                )
+            log("K6 " + json.dumps(row))
+            rows.append(row)
+        del st
+        torch.cuda.empty_cache()
+    if not all(r["ok"] for r in rows):
+        raise AssertionError("K6 disagrees with its plain version")
+    return rows
+
+
 # -- phase 6 -----------------------------------------------------------------
 
 SLICE_CONFIG = "longclip-l14-248"
@@ -540,9 +718,10 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def phase_slice(device="cuda", config=SLICE_CONFIG, store_rows=STORE_ROWS) -> dict:
-    """The app at longclip-l14-248 over HTTP; returns the launch counts.
-    (A small config on the CPU rehearses the same control flow.)"""
+def phase_slice(device="cuda", config=SLICE_CONFIG, store_rows=STORE_ROWS):
+    """The app at longclip-l14-248 over HTTP; returns the launch counts and
+    the embedder. (A small config on the CPU rehearses the same control
+    flow.)"""
     import shutil
 
     import torch
@@ -651,7 +830,7 @@ def phase_slice(device="cuda", config=SLICE_CONFIG, store_rows=STORE_ROWS) -> di
     )
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != what the requests imply {expected}")
-    return launches
+    return launches, embedder
 
 
 def _host_ms(fn, device, iters: int = 10) -> float:
@@ -729,7 +908,7 @@ def device_busy(fn, wall_ms: float, iters: int = 5, top: int = 0) -> dict:
             fn()
         torch.cuda.synchronize()
     busy = 0.0
-    by_kernel = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
+    by_kernel = {k: 0.0 for k in ("K1", "K1_int8", "K2", "K3", "K4", "K5", "K6")}
     by_name = {}
     n_kernels = 0
     for evt in prof.events():
@@ -758,6 +937,12 @@ def device_busy(fn, wall_ms: float, iters: int = 5, top: int = 0) -> dict:
 
 def _kernel_key(name: str):
     """The port's kernel a profiler event belongs to, by its name."""
+    if "int4_tile_max_kernel" in name:
+        return "K5"
+    if "tile_max_t_kernel" in name:
+        return "K6"
+    if "tile_max_int8_kernel" in name:
+        return "K1_int8"
     if "tile_max_kernel" in name:
         return "K1"
     if "flash_fwd_kernel" in name:
@@ -1005,6 +1190,180 @@ def breakdown_fused(emb, files, device) -> None:
     del bf16
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+# tier -> (environment, the engine its builds must report)
+TIERS = {
+    "int8": ({"IMATCH_SCORE_DTYPE": "int8"}, "tilemax"),
+    "tilemax-host": ({"IMATCH_INDEX_ENGINE": "tilemax-host"}, "tilemax-host"),
+}
+N_TIER_UPLOADS = 4
+AUTO_BUDGET = 4 << 30  # a 4 GiB device budget: a 2^20 x 768 tilemax build escalates
+
+
+@contextlib.contextmanager
+def environment(**values):
+    """os.environ with ``values`` set, restored on leaving."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _references(store, queries, device, k=10):
+    """Ids of the full fp32 brute force and of the bf16 tilemax engine over
+    the store's rows, for each query."""
+    import torch
+
+    from imatch_tpu_torch.index.search import prepare_device_corpus, tilemax_topk
+
+    n = store._n
+    rows = torch.from_numpy(store._emb[:n]).to(device)
+    alive = torch.from_numpy(store._alive[:n]).to(device)
+    _, brute = brute_force_topk(queries, rows, alive, k)
+    dc = prepare_device_corpus(rows, alive, tile_n=512, device=device)
+    _, bf16 = tilemax_topk(queries, dc, k=store._k_bucket(k))
+    ids = store._ids
+    return (
+        [[ids[i] for i in r] for r in brute[:, :k].tolist()],
+        [[ids[i] for i in r] for r in bf16[:, :k].tolist()],
+    )
+
+
+def phase_tiers(embedder, device="cuda", store_rows=STORE_ROWS) -> dict:
+    """The int8 score tier and the tilemax-host tier, each an app over
+    HTTP on ``embedder`` with a store of ``store_rows`` rows; then an auto
+    store that escalates. Returns the K1 and K1-int8 launch counts of each
+    tier's searches. (A small config on the CPU rehearses the same control
+    flow.)"""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from imatch_tpu_torch.index.store import VectorStore
+    from imatch_tpu_torch.ops.kernels.topk import tile_max, tile_max_int8
+    from imatch_tpu_torch.pipeline.state import AppState
+    from imatch_tpu_torch.serving.app import create_app
+
+    cfg = embedder.cfg
+    n_pre = store_rows - N_TIER_UPLOADS
+    g = torch.Generator(device=device).manual_seed(3)
+    pre = torch.randn((n_pre, cfg.projection_dim), generator=g, device=device)
+    pre = (pre / pre.norm(dim=1, keepdim=True)).cpu().numpy()
+    pre_ids = [f"pre_{i}" for i in range(n_pre)]
+    pre_meta = [{"id": i} for i in pre_ids]
+    pngs = [synthetic_png(200 + i) for i in range(N_TIER_UPLOADS)]
+    counts = {}
+    text_vec = None
+    for tier, (env, engine) in TIERS.items():
+        root = os.path.join("build", f"chip_smoke_{tier}")
+        shutil.rmtree(root, ignore_errors=True)
+        with environment(**env):
+            state = AppState(root=root, embedder=embedder, device=device)
+        store = state.store
+        assert store.engine == engine, (store.engine, engine)
+        store.add(ids=pre_ids, embeddings=pre, metadatas=pre_meta)
+        seen = []  # the query vectors the app hands the store
+        query = store.query
+
+        def recording(query_embeddings, *args, _query=query, _seen=seen, **kw):
+            q = query_embeddings
+            _seen.append(q.float() if isinstance(q, torch.Tensor) else torch.as_tensor(np.asarray(q, np.float32)))
+            return _query(query_embeddings, *args, **kw)
+
+        store.query = recording
+        port = _free_port()
+        with ServerThread(create_app(state), port):
+            http = HttpClient(port)
+            ids = []
+            for i, png in enumerate(pngs):
+                status, body, _ = http.request("POST", "/api/upload", files=[("file", f"t{i}.png", png)])
+                assert status == 200 and body["success"], body
+                ids.append(body["metadata"]["id"])
+            _sync(device)
+            tile_max.launches = 0
+            tile_max_int8.launches = 0
+            seen.clear()
+            times, tops = {}, {}
+            for name, path, fields, files in (
+                ("text", "/api/search/text", [("query", TEXT_QUERY)], []),
+                ("image", "/api/search/image", [], [("file", "q.png", pngs[1])]),
+                (
+                    "multimodal",
+                    "/api/search/multimodal",
+                    [("query", MULTIMODAL_QUERY), ("weight_image", "0.7")],
+                    [("file", "q.png", pngs[2])],
+                ),
+            ):
+                status, body, times[f"{name}_ms"] = http.request(
+                    "POST", path, fields + [("limit", "10")], files
+                )
+                assert status == 200 and len(body["results"]) == 10, body
+                tops[name] = [r["id"] for r in body["results"]]
+            _sync(device)
+            launches = {"K1": tile_max.launches, "K1_int8": tile_max_int8.launches}
+        store.query = query
+        assert tops["image"][0] == ids[1], tops["image"]
+        last_build = store.stats()["last_build"]
+        queries = torch.cat([q.to(device) for q in seen])
+        brute, bf16 = _references(store, queries, device)
+        equal = {
+            name: tops[name] == brute[j] == bf16[j]
+            for j, name in enumerate(("text", "image", "multimodal"))
+        }
+        text_vec = queries[:1]
+        wall = _host_ms(lambda: store.query(text_vec, n_results=10), device)
+        row = {
+            "tier": tier,
+            "config": cfg.name,
+            "store_rows": store.count(),
+            "last_build": last_build,
+            **times,
+            "ids_equal_brute_force_and_bf16": equal,
+            "launches": launches,
+            "store_query_ms": wall,
+        }
+        if torch.device(device).type == "cuda":
+            row["device_store_query"] = device_busy(
+                lambda: store.query(text_vec, n_results=10), wall
+            )
+        log("tiers: " + json.dumps(row))
+        # one int8 phase 1 a search on the card; the CPU runs plain versions
+        expected = {"K1": 0, "K1_int8": 3 if torch.device(device).type == "cuda" else 0}
+        if last_build["engine"] != engine or not all(equal.values()) or launches != expected:
+            raise AssertionError(f"the {tier} tier failed: {row}")
+        counts[tier] = launches
+        del state, store, query, recording
+        gc.collect()
+        shutil.rmtree(root, ignore_errors=True)
+
+    # auto: a device budget the tilemax build would outgrow
+    with environment(IMATCH_INDEX_ENGINE="auto", IMATCH_DEVICE_BYTES_BUDGET=str(AUTO_BUDGET)):
+        auto = VectorStore(device=device)
+        auto.add(ids=pre_ids, embeddings=pre)
+        got = auto.query(text_vec, n_results=10)["ids"]
+    brute, _ = _references(auto, text_vec, device)
+    stats = auto.stats()
+    log(
+        "tiers auto: "
+        + json.dumps(
+            {"engine": stats["engine"], "last_build": stats["last_build"], "budget": AUTO_BUDGET}
+        )
+    )
+    if stats["last_build"]["engine"] != "tilemax-host" or got != brute:
+        raise AssertionError(f"the auto store did not escalate or disagrees: {stats}")
+    del auto, pre
+    gc.collect()
+    return counts
+
+
 def phase_reference() -> None:
     """vit-b32 (depth cut to 2 layers a tower) on the card, bf16 and fp32,
     against the same weights in fp32 on the CPU: per-row cosine of the
@@ -1115,25 +1474,50 @@ def phase_w8a8_fidelity(w8a8) -> None:
         raise AssertionError(f"the W8A8 tower strays from the fp32 tower: mean cosine {worst}")
 
 
-def kernels_line(k2_rows, k1_rows, k34_rows, launches) -> dict:
-    """One entry a kernel at the shapes the slices' requests give it: the
-    image tower's attention for one upload, phase 1 of one search over the
-    2^20-row store (bf16, the tilemax engine's 512-row tiles), and the
-    W8A8 tower's quantizes in the bulk-ingest chunk of 64 images (bf16)."""
-    k2 = next(
-        r for r in k2_rows if r["shape"] == [1, 16, 257, 64] and r["dtype"] == "bfloat16"
-    )
-    k1 = next(
-        r for r in k1_rows if r["q"] == 1 and r["dtype"] == "bfloat16" and r["tile_n"] == 512
-    )
+# -- phase 10 ----------------------------------------------------------------
 
-    def k34(kernel, d):
-        return next(
-            r
-            for r in k34_rows
-            if r["kernel"] == kernel and r["d"] == d and r["rows"] == 64 * 257 and r["dtype"] == "bfloat16"
-        )
 
+def phase_scripts():
+    """The two experiment entry points on the card, with the K5 and K6
+    launch counts read around them; returns the counts and the scripts'
+    JSON lines (printed by main before the kernels line)."""
+    from imatch_tpu_torch.ops.kernels.int4_topk import int4_tile_max
+    from imatch_tpu_torch.ops.kernels.topk_t import tile_max_t
+    from imatch_tpu_torch.scripts import exp_int4_kernel, exp_pallas_search
+
+    int4_tile_max.launches = 0
+    tile_max_t.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        k5 = exp_int4_kernel.main("cuda")
+        k6 = exp_pallas_search.main("cuda")
+    launches = {"K5": int4_tile_max.launches, "K6": tile_max_t.launches}
+    log(f"scripts: ran in {time.perf_counter() - t0:.1f} s, launches {json.dumps(launches)}")
+    if not (k5["kernel_matches_plain_torch"] and k6["transposed_matches"]):
+        raise AssertionError("an experiment script's correctness check failed")
+    if not (k6["transposed_528_matches"] and launches["K5"] and launches["K6"]):
+        raise AssertionError(f"an experiment script failed: {launches}")
+    return launches, buf.getvalue().strip().splitlines()
+
+
+def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launches) -> dict:
+    """One entry a kernel at the shapes its main path gives it: the image
+    tower's attention for one upload, phase 1 of one search over the
+    2^20-row store (bf16 and int8, the tilemax engine's 512-row tiles), the
+    W8A8 tower's quantizes in the bulk-ingest chunk of 64 images (bf16), and
+    K5 and K6 at their scripts' shapes (8 queries over 2^20 rows, tile
+    2048). Launches are those of each path's run: slices 1-3 for K1-K4,
+    the two experiment scripts for K5 and K6."""
+
+    def pick(table, **want):
+        return next(r for r in table if all(r[k] == v for k, v in want.items()))
+
+    k1 = pick(k1_rows, q=1, dtype="bfloat16", tile_n=512)
+    k1i8 = pick(k1i8_rows, q=1)
+    k2 = pick(k2_rows, shape=[1, 16, 257, 64], dtype="bfloat16")
+    k5 = pick(k5_rows, tile_n=2048)
+    k6 = pick(k6_rows, dp=640, tile_n=2048)
     entries = []
     for name, row, source, replaces, key, shape in (
         (
@@ -1145,6 +1529,15 @@ def kernels_line(k2_rows, k1_rows, k34_rows, launches) -> dict:
             f"Q=1 x {k1['n']}x{k1['d']} bf16, tile_n {k1['tile_n']}",
         ),
         (
+            "K1 tile_max_int8",
+            k1i8,
+            "imatch_tpu_torch/csrc/tile_max.cu",
+            "imatch_tpu/index/search.py:99",
+            "K1_int8",
+            f"Q=1 x {k1i8['n']}x{k1i8['d']} int8, tile_n 512; launches: the int8 and "
+            "tilemax-host tiers' searches",
+        ),
+        (
             "K2 flash_attention",
             k2,
             "imatch_tpu_torch/csrc/flash_attention.cu",
@@ -1154,7 +1547,7 @@ def kernels_line(k2_rows, k1_rows, k34_rows, launches) -> dict:
         ),
         (
             "K3 quant_rows",
-            k34("K3", 4096),
+            pick(k34_rows, kernel="K3", d=4096, rows=64 * 257, dtype="bfloat16"),
             "imatch_tpu_torch/csrc/quantize.cu",
             "imatch_tpu/ops/pallas/quantize.py:74",
             "K3",
@@ -1162,11 +1555,27 @@ def kernels_line(k2_rows, k1_rows, k34_rows, launches) -> dict:
         ),
         (
             "K4 ln_quant_rows",
-            k34("K4", 1024),
+            pick(k34_rows, kernel="K4", d=1024, rows=64 * 257, dtype="bfloat16"),
             "imatch_tpu_torch/csrc/quantize.cu",
             "imatch_tpu/ops/pallas/quantize.py:81",
             "K4",
             "(16448, 1024) bf16: ln1/ln2 of a 64-image chunk",
+        ),
+        (
+            "K5 int4_tile_max",
+            k5,
+            "imatch_tpu_torch/csrc/int4_tile_max.cu",
+            "scripts/exp_int4_kernel.py:79",
+            "K5",
+            "Q=8 x 1048576x512 int4 packed (N, 256) + rows 0-1 of the (8, N) bf16 side, tile_n 2048",
+        ),
+        (
+            "K6 tile_max_t",
+            k6,
+            "imatch_tpu_torch/csrc/tile_max_t.cu",
+            "scripts/exp_pallas_search.py:71",
+            "K6",
+            "Q=8 x (640, 1048576) bf16 transposed, tile_n 2048",
         ),
     ):
         entry = {
@@ -1185,6 +1594,8 @@ def kernels_line(k2_rows, k1_rows, k34_rows, launches) -> dict:
         }
         if key in ("K3", "K4"):
             entry["library_note"] = "no single PyTorch call computes a per-row int8 quantize"
+        elif "library_note" in row:
+            entry["library_note"] = row["library_note"]
         entries.append(entry)
     return {"kernels": entries}
 
@@ -1197,21 +1608,34 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     phase_identify()
-    unported_bounds()
     phase_build()
     k2_rows = phase_k2()
     k1_rows = phase_k1()
+    k1i8_rows = phase_k1_int8()
     k34_rows = phase_k34()
-    launches = phase_slice()
+    k5_rows = phase_k5()
+    k6_rows = phase_k6()
+    launches, embedder = phase_slice()
     gc.collect()  # the first slice's app and 2^20-row store
     torch.cuda.empty_cache()
     w8a8_launches, w8a8 = phase_w8a8()
     launches.update(K3=w8a8_launches["K3"], K4=w8a8_launches["K4"])
+    tiers = phase_tiers(embedder)
+    launches["K1_int8"] = sum(c["K1_int8"] for c in tiers.values())
+    del embedder
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_reference()
     phase_w8a8_fidelity(w8a8)
     del w8a8
+    gc.collect()
+    torch.cuda.empty_cache()
+    script_launches, script_lines = phase_scripts()
+    launches.update(script_launches)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps(kernels_line(k2_rows, k1_rows, k34_rows, launches)))
+    for line in script_lines:
+        print(line)
+    print(json.dumps(kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launches)))
     print(
         json.dumps(
             {

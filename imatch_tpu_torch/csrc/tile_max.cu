@@ -22,6 +22,17 @@
 // memory; one plain store per (query, tile) and no atomics, since no two
 // blocks write the same output. Tensor cores, TMA and persistent blocks are
 // left for later work.
+//
+// The int8 variant (tile_max_int8 below) is phase 1 of the int8 score tier
+// and of the tilemax-host tier: the math of imatch_tpu/index/search.py::
+// _int8_scores, which JAX leaves to XLA. Codes are int8 (queries and corpus,
+// the corpus dim a multiple of 16), with a per-query and a per-row fp32
+// scale. The dots accumulate exactly in int32 with __dp4a on 16-byte loads
+// (the query chunk sits in shared memory packed four codes to an int32);
+// an integer sum is exact in any order, and the dequantize is
+// ((float)acc * qscale) * scale with one rounding each (__fmul_rn, so nvcc
+// cannot contract them), so the result is bit-identical to the plain
+// PyTorch version. Bound: the int8 corpus bytes, half of bf16's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -168,6 +179,108 @@ cudaError_t dispatch(const void* queries, const void* corpus, const uint8_t* val
   return launch<T, 16>(queries, corpus, valid, out, Q, D, tile_n, n_tiles, stream);
 }
 
+// -- int8 ---------------------------------------------------------------------
+
+template <int QC>
+__global__ void __launch_bounds__(NTHREADS)
+tile_max_int8_kernel(const int8_t* __restrict__ queries, const int8_t* __restrict__ corpus,
+                     const float* __restrict__ qscale, const float* __restrict__ scale,
+                     const uint8_t* __restrict__ valid, float* __restrict__ out, int Q, int D,
+                     int tile_n, int n_tiles) {
+  constexpr int VEC = 16;  // codes per 16-byte load
+  extern __shared__ __align__(16) int qw[];  // QC x D/4, four codes a word
+  __shared__ float red[NWARPS][QC];
+
+  const int W = D / 4;
+  const int tile = blockIdx.x;
+  const int qbase = blockIdx.y * QC;
+  const int nq = min(QC, Q - qbase);
+  const int* qsrc = reinterpret_cast<const int*>(queries + size_t(qbase) * D);
+  for (int i = threadIdx.x; i < QC * W; i += NTHREADS) qw[i] = i / W < nq ? qsrc[i] : 0;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int sub = threadIdx.x & (GROUP - 1);
+  const int grp = threadIdx.x / GROUP;
+  const size_t row0 = size_t(tile) * tile_n;
+
+  float qs[QC];
+  float best[QC];
+#pragma unroll
+  for (int qi = 0; qi < QC; ++qi) {
+    qs[qi] = qi < nq ? qscale[qbase + qi] : 0.f;
+    best[qi] = NEG_INF;
+  }
+
+  for (int r0 = 0; r0 < tile_n; r0 += NGROUPS) {
+    const int r = r0 + grp;
+    const bool active = r < tile_n;
+    int acc[QC];
+#pragma unroll
+    for (int qi = 0; qi < QC; ++qi) acc[qi] = 0;
+    if (active) {
+      const int8_t* row = corpus + (row0 + r) * size_t(D);
+      for (int d = sub * VEC; d < D; d += GROUP * VEC) {
+        const int4 x = __ldg(reinterpret_cast<const int4*>(row + d));
+#pragma unroll
+        for (int qi = 0; qi < QC; ++qi) {
+          const int4 qv = *reinterpret_cast<const int4*>(qw + qi * W + d / 4);
+          acc[qi] = __dp4a(x.x, qv.x, acc[qi]);
+          acc[qi] = __dp4a(x.y, qv.y, acc[qi]);
+          acc[qi] = __dp4a(x.z, qv.z, acc[qi]);
+          acc[qi] = __dp4a(x.w, qv.w, acc[qi]);
+        }
+      }
+    }
+#pragma unroll
+    for (int qi = 0; qi < QC; ++qi) {
+      acc[qi] += __shfl_xor_sync(0xffffffffu, acc[qi], 1);
+      acc[qi] += __shfl_xor_sync(0xffffffffu, acc[qi], 2);
+      acc[qi] += __shfl_xor_sync(0xffffffffu, acc[qi], 4);
+    }
+    if (active && valid[row0 + r]) {
+      const float sr = scale[row0 + r];
+#pragma unroll
+      for (int qi = 0; qi < QC; ++qi) {
+        const float s = __fmul_rn(__fmul_rn(__int2float_rn(acc[qi]), qs[qi]), sr);
+        best[qi] = fmaxf(best[qi], s);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int qi = 0; qi < QC; ++qi) {
+    best[qi] = fmaxf(best[qi], __shfl_xor_sync(0xffffffffu, best[qi], 8));
+    best[qi] = fmaxf(best[qi], __shfl_xor_sync(0xffffffffu, best[qi], 16));
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int qi = 0; qi < QC; ++qi) red[warp][qi] = best[qi];
+  }
+  __syncthreads();
+  if (threadIdx.x < nq) {
+    float m = red[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < NWARPS; ++w) m = fmaxf(m, red[w][threadIdx.x]);
+    out[size_t(qbase + threadIdx.x) * n_tiles + tile] = m;
+  }
+}
+
+template <int QC>
+cudaError_t launch_int8(const int8_t* queries, const int8_t* corpus, const float* qscale,
+                        const float* scale, const uint8_t* valid, float* out, int Q, int D,
+                        int tile_n, int n_tiles, cudaStream_t stream) {
+  const size_t smem = sizeof(int) * size_t(QC) * (D / 4);
+  cudaError_t err = cudaFuncSetAttribute(tile_max_int8_kernel<QC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_tiles, (Q + QC - 1) / QC);
+  tile_max_int8_kernel<QC><<<grid, NTHREADS, smem, stream>>>(queries, corpus, qscale, scale,
+                                                             valid, out, Q, D, tile_n, n_tiles);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -185,6 +298,28 @@ int tile_max(const void* queries, const void* corpus, const void* valid, void* o
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(queries, corpus, vm, o, Q, D, tile_n, n_tiles, st);
   return cudaErrorInvalidValue;
+}
+
+// The int8 variant. queries (Q, D) and corpus (n_tiles * tile_n, D) int8
+// codes, row-major, D a multiple of 16; qscale (Q,) and scale
+// (n_tiles * tile_n,) fp32; valid one byte a corpus row; out (Q, n_tiles)
+// fp32. Returns the cudaError_t of the launch (0 on success).
+int tile_max_int8(const void* queries, const void* corpus, const void* qscale, const void* scale,
+                  const void* valid, void* out, int Q, int D, int tile_n, int n_tiles,
+                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* q = static_cast<const int8_t*>(queries);
+  const int8_t* c = static_cast<const int8_t*>(corpus);
+  const float* qs = static_cast<const float*>(qscale);
+  const float* s = static_cast<const float*>(scale);
+  const uint8_t* vm = static_cast<const uint8_t*>(valid);
+  float* o = static_cast<float*>(out);
+  if (D % 16) return cudaErrorInvalidValue;
+  if (Q <= 1) return launch_int8<1>(q, c, qs, s, vm, o, Q, D, tile_n, n_tiles, st);
+  if (Q <= 2) return launch_int8<2>(q, c, qs, s, vm, o, Q, D, tile_n, n_tiles, st);
+  if (Q <= 4) return launch_int8<4>(q, c, qs, s, vm, o, Q, D, tile_n, n_tiles, st);
+  if (Q <= 8) return launch_int8<8>(q, c, qs, s, vm, o, Q, D, tile_n, n_tiles, st);
+  return launch_int8<16>(q, c, qs, s, vm, o, Q, D, tile_n, n_tiles, st);
 }
 
 const char* tile_max_error_string(int err) {

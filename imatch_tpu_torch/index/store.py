@@ -15,17 +15,28 @@ a chroma cosine collection (pipeline/search.py maps similarity
 - Deletes are tombstones; compaction rewrites the rows when more than
   half the slots are dead.
 - Engines: ``tilemax`` (tile_n 512, margin IMATCH_TILEMAX_MARGIN, default
-  4), ``pallas`` (tile_n 2048, margin 4), and ``auto`` (``tilemax`` on one
-  GPU); phase 1 of each runs on K1. Score dtypes bf16 (default) and fp32.
+  4, or 16 with int8 scoring), ``pallas`` (tile_n 2048, margin 4; int8
+  scoring is coerced to bf16 there, as in JAX), ``tilemax-host`` (int8
+  codes on the device, fp32 rescore on the host; margin 16) and ``auto``
+  (``tilemax`` on one GPU, escalated per build to ``tilemax-host`` when
+  the device copies would outgrow the card, ``_engine_for``). Phase 1 of
+  each runs on K1, the int8 tiers on its int8 variant. Score dtypes bf16
+  (default), fp32 and int8.
+- Each build is tagged with the engine that built it, and ``query``
+  dispatches on the tag; ``stats()["last_build"]["engine"]`` reports it.
+- ``query`` runs the engine at the next power of two of k and keeps the
+  first k, as the JAX store does: the candidate tiles (k_c + margin) and
+  so the answers on near-tied corpora are JAX's.
 
 Not in this slice (ROADMAP.md, Queue 1): the journal, snapshots and
 ``load``, incremental device patching (index/patch.py), the query
-coalescer, the int8 score dtype and the sharded, tilemax-host and IVF
-engines, which raise ``NotImplementedError`` naming their ROADMAP item.
+coalescer, ``cosine_topk``, and the sharded and IVF engines, which raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
 import time
@@ -35,7 +46,15 @@ import numpy as np
 import torch
 
 from imatch_tpu_torch.device import DeviceLike, resolve_device
-from imatch_tpu_torch.index.search import prepare_device_corpus, tilemax_topk
+from imatch_tpu_torch.index.search import (
+    HOST_MARGIN,
+    host_rescore_topk,
+    prepare_device_corpus,
+    prepare_host_rescore_corpus,
+    tilemax_topk,
+)
+
+logger = logging.getLogger("imatch.store")
 
 _MIN_CAP = 1024
 
@@ -44,16 +63,15 @@ _SCORE_DTYPES = {
     "bfloat16": torch.bfloat16,
     "fp32": torch.float32,
     "float32": torch.float32,
+    "int8": torch.int8,
 }
 _LATER = {
-    "int8": "ROADMAP.md Queue 1 step 4 (int8 scoring, with K1's int8 variant)",
     "sharded": "ROADMAP.md Queue 1 step 12 (multi-GPU and parallel)",
-    "tilemax-host": "ROADMAP.md Queue 1 step 4 (the tilemax-host capacity tier)",
     "ivf": "ROADMAP.md Queue 1 step 11 (IVF ANN tier)",
     "ivf-sharded": "ROADMAP.md Queue 1 step 11 (IVF ANN tier) and step 12",
 }
-# engine -> (tile_n, default margin), as the JAX engines use them
-_ENGINES = {"tilemax": 512, "pallas": 2048}
+# engine -> tile_n, as the JAX engines use them
+_ENGINES = {"tilemax": 512, "pallas": 2048, "tilemax-host": 512}
 
 
 def _norm_row_lists(rows, n: int, what: str) -> list:
@@ -74,10 +92,6 @@ def _env_engine() -> str:
 
 def _score_dtype(name: str) -> torch.dtype:
     name = name.lower()
-    if name in _LATER:
-        raise NotImplementedError(
-            f"IMATCH_SCORE_DTYPE={name} is not ported yet: {_LATER[name]}"
-        )
     if name not in _SCORE_DTYPES:
         raise ValueError(
             f"unknown score dtype {name!r}; valid: {sorted(_SCORE_DTYPES)}"
@@ -96,8 +110,11 @@ class VectorStore:
         self.device = resolve_device(device)
         self.dim = dim
         self.engine = (engine or _env_engine()).lower()
-        if self.engine == "auto":
-            self.engine = "tilemax"  # one GPU: the single-device exact engine
+        self._auto = self.engine == "auto"
+        if self._auto:
+            # one GPU: the single-device exact engine, escalated per build
+            # to the capacity tier when the corpus outgrows the card
+            self.engine = "tilemax"
         if self.engine in _LATER:
             raise NotImplementedError(
                 f"index engine {self.engine!r} is not ported yet: {_LATER[self.engine]}"
@@ -105,14 +122,18 @@ class VectorStore:
         if self.engine not in _ENGINES:
             raise ValueError(f"unknown index engine {self.engine!r}")
         self.tile_n = _ENGINES[self.engine]
-        self.margin = (
-            int(os.environ.get("IMATCH_TILEMAX_MARGIN", "4"))
-            if self.engine == "tilemax"
-            else 4
-        )
         self.score_dtype = _score_dtype(
             score_dtype or os.environ.get("IMATCH_SCORE_DTYPE", "bf16")
         )
+        if self.engine == "tilemax":
+            default = "16" if self.score_dtype == torch.int8 else "4"
+            self.margin = int(os.environ.get("IMATCH_TILEMAX_MARGIN", default))
+        elif self.engine == "tilemax-host":
+            # for stats(): the host tier's phase 1 takes HOST_MARGIN itself,
+            # also when auto escalates a tilemax store to it
+            self.margin = HOST_MARGIN
+        else:
+            self.margin = 4
         self._lock = threading.RLock()
         self._ids: List[str] = []
         self._slot: Dict[str, int] = {}
@@ -122,7 +143,7 @@ class VectorStore:
         self._alive: Optional[np.ndarray] = None  # (cap,) bool
         self._n = 0  # slots in use (incl. tombstones)
         self._dead = 0
-        self._device_corpus = None  # DeviceCorpus, dropped on mutation
+        self._device_corpus = None  # (engine tag, state), dropped on mutation
         self._last_build: Optional[dict] = None
 
     # -- capacity -----------------------------------------------------------
@@ -306,6 +327,69 @@ class VectorStore:
 
     # -- search -------------------------------------------------------------
 
+    def _engine_for(self) -> str:
+        """Effective engine for one build (JAX ``_engine_for``). With
+        IMATCH_INDEX_ENGINE=auto, when the device copies of the tilemax
+        engine (score dtype, int8 counted as 2 bytes as in JAX, plus the
+        fp32 rescore copy) would exceed IMATCH_AUTO_HBM_FRAC (default 0.5)
+        of the card's memory (IMATCH_DEVICE_BYTES_BUDGET, else the card's
+        total), the build escalates to tilemax-host, whose int8 codes are
+        the only device copy. The footprint counts the slot capacity, as
+        JAX's does, so both packages escalate at the same row count; the
+        port uploads only the slots in use, which is at most that. A
+        non-auto engine is never overridden."""
+        eng = self.engine
+        if not self._auto or eng != "tilemax":
+            return eng
+        budget = os.environ.get("IMATCH_DEVICE_BYTES_BUDGET")
+        if budget is None and self.device.type == "cuda":
+            budget = torch.cuda.mem_get_info(self.device)[1]
+        if not budget:
+            return eng
+        elems = self._emb.size
+        score_bytes = 2 if self.score_dtype == torch.int8 else self.score_dtype.itemsize
+        per_device = elems * (score_bytes + 4)
+        host_tier = elems  # the int8 codes alone
+        frac = float(os.environ.get("IMATCH_AUTO_HBM_FRAC", "0.5"))
+        limit = frac * float(budget)
+        if per_device > limit and host_tier < per_device:
+            logger.warning(
+                "auto index engine: %.2f GB on the device exceeds %.0f%% of "
+                "%.2f GB%s; escalating to tilemax-host for this build",
+                per_device / 2**30,
+                frac * 100,
+                float(budget) / 2**30,
+                " and even the int8 host tier exceeds it" if host_tier > limit else "",
+            )
+            return "tilemax-host"
+        return eng
+
+    def _build(self, eng: str):
+        """The prepared state of engine ``eng`` over the slots in use."""
+        emb, alive = self._emb[: self._n], self._alive[: self._n]
+        if eng == "tilemax-host":
+            # host-side quantize: only the int8 codes cross to the card
+            return prepare_host_rescore_corpus(
+                emb.copy(), alive.copy(), tile_n=self.tile_n, device=self.device
+            )
+        dtype = self.score_dtype
+        if eng == "pallas" and dtype == torch.int8:
+            dtype = torch.bfloat16  # int8 is a tilemax option, as in JAX
+        return prepare_device_corpus(
+            emb,
+            alive,
+            tile_n=self.tile_n,
+            score_dtype=dtype,
+            margin=self.margin,
+            device=self.device,
+        )
+
+    @staticmethod
+    def _k_bucket(k: int) -> int:
+        """The next power of two: the JAX store runs its engines at this k
+        (a jit cache key there), so its candidate tiles are k_c + margin."""
+        return 1 << max(0, k - 1).bit_length()
+
     def _snapshot_for_query(self):
         """(live count, device corpus, id/meta/doc lists), consistent with
         each other. Lock-free use afterwards is safe: ``add`` only appends
@@ -316,15 +400,10 @@ class VectorStore:
             live = self.count()
             if self._device_corpus is None and live:
                 t0 = time.perf_counter()
-                self._device_corpus = prepare_device_corpus(
-                    self._emb[: self._n],
-                    self._alive[: self._n],
-                    tile_n=self.tile_n,
-                    score_dtype=self.score_dtype,
-                    margin=self.margin,
-                    device=self.device,
-                )
+                eng = self._engine_for()
+                self._device_corpus = (eng, self._build(eng))
                 self._last_build = {
+                    "engine": eng,
                     "seconds": round(time.perf_counter() - t0, 3),
                     "rows": self._n,
                 }
@@ -353,9 +432,14 @@ class VectorStore:
             for key in out:
                 out[key] = [[] for _ in range(qn)]
             return self._strip_include(out, include)
-        scores, idx = tilemax_topk(q.to(self.device), dc, k=k)
-        scores = scores.cpu().numpy()
-        idx = idx.cpu().numpy()
+        k_c = self._k_bucket(k)
+        eng, state = dc
+        if eng == "tilemax-host":
+            scores, idx = host_rescore_topk(q.to(self.device), state, k=k_c)
+        else:
+            scores, idx = tilemax_topk(q.to(self.device), state, k=k_c)
+            scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
+        scores, idx = scores[:, :k], idx[:, :k]
         for qi in range(qn):
             row_ids, row_d, row_m, row_doc = [], [], [], []
             for s, i in zip(scores[qi], idx[qi]):

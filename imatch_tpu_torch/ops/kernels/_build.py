@@ -27,7 +27,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("flash_attention", "quantize", "tile_max")
+SOURCES = ("flash_attention", "int4_tile_max", "quantize", "tile_max", "tile_max_t")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",

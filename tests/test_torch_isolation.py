@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no JAX, no imatch_tpu, no silent CPU.
 
 - In a subprocess whose import system refuses ``jax`` and ``imatch_tpu``
-  (a ``sys.meta_path`` finder), every module of ``imatch_tpu_torch`` and
-  ``chip_smoke.py`` import.
+  (a ``sys.meta_path`` finder), every module of ``imatch_tpu_torch`` (each
+  .py file under it) and ``chip_smoke.py`` import.
 - Entry points asked for no device raise where CUDA is unavailable.
 - ``chip_smoke.py`` fails, printing no result, without a card and in a
   directory that holds nothing else of the repo.
@@ -21,7 +21,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED_IMPORTS = textwrap.dedent(
     """
-    import importlib, importlib.util, pkgutil, sys
+    import importlib, importlib.util, os, sys
 
     class Block:
         def find_spec(self, name, path=None, target=None):
@@ -34,16 +34,22 @@ _BLOCKED_IMPORTS = textwrap.dedent(
     sys.path.insert(0, sys.argv[1])
     import imatch_tpu_torch
 
-    names = [imatch_tpu_torch.__name__]
-    for m in pkgutil.walk_packages(imatch_tpu_torch.__path__, "imatch_tpu_torch."):
-        names.append(m.name)
+    # every .py file, namespace subpackages (models/clip) included, which
+    # pkgutil.walk_packages does not enter
+    root = os.path.dirname(imatch_tpu_torch.__file__)
+    names = []
+    for d, _, files in sorted(os.walk(root)):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, f), os.path.dirname(root))[:-3]
+                names.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
     for name in names:
         importlib.import_module(name)
     spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1] + "/chip_smoke.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))  # defines, runs nothing
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "imatch_tpu"))
     assert not loaded, loaded
-    print(len(names))
+    print(" ".join(sorted(m for m in sys.modules if m.split(".")[0] == "imatch_tpu_torch")))
     """
 )
 
@@ -56,9 +62,20 @@ def test_every_module_imports_without_jax_or_imatch_tpu():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    # every module was visited, ops/quant.py, ops/kernels/quantize.py and
-    # models/clip/quant.py among them
-    assert int(proc.stdout.split()[-1]) >= 30
+    names = set(proc.stdout.split())
+    assert len(names) >= 36
+    # every module was imported (models/clip is reached through the
+    # embedder), the kernels' wrappers and the script ports among them
+    for name in (
+        "ops.quant",
+        "ops.kernels.quantize",
+        "models.clip.quant",
+        "ops.kernels.int4_topk",
+        "ops.kernels.topk_t",
+        "scripts.exp_int4_kernel",
+        "scripts.exp_pallas_search",
+    ):
+        assert f"imatch_tpu_torch.{name}" in names, name
 
 
 def test_blocker_really_blocks():

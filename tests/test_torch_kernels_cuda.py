@@ -9,7 +9,9 @@ which sets JAX up:
 
 Tolerances: fp32 2e-5 (tests/test_pallas.py's bar); bf16 2 bf16 ulps at
 magnitude 1 (2 * 2^-7), against the plain version in fp32 on the same
-bf16 inputs; tile maxima 1e-5 (fp32 sums in another order); int8 codes of
+bf16 inputs; tile maxima 1e-5 (fp32 sums in another order), K1's int8
+variant bit-identical (integer dots, the same two roundings), K6 within
+1e-6 of K1 on the same rows (exp_pallas_search.py's bar); int8 codes of
 K3 and K4 within 1 LSB of the plain version with under 1e-3 (K3) or 2e-3
 (K4) of them differing, scales within rtol 1e-6
 (tests/test_quant_kernel.py's bars; K4's rsqrtf is not correctly rounded).
@@ -19,7 +21,13 @@ import pytest
 import torch
 
 from imatch_tpu_torch.device import resolve_device
-from imatch_tpu_torch.index.search import prepare_device_corpus, tilemax_topk
+from imatch_tpu_torch.index.search import (
+    _int8_queries,
+    host_rescore_topk,
+    prepare_device_corpus,
+    prepare_host_rescore_corpus,
+    tilemax_topk,
+)
 from imatch_tpu_torch.models.clip.configs import TINY
 from imatch_tpu_torch.models.clip.model import init_random
 from imatch_tpu_torch.models.clip.quant import encode_image_w8a8
@@ -30,7 +38,15 @@ from imatch_tpu_torch.ops.kernels.quantize import (
     quant_rows,
     quant_rows_plain,
 )
-from imatch_tpu_torch.ops.kernels.topk import NEG_INF, tile_max, tile_max_plain
+from imatch_tpu_torch.ops.kernels.int4_topk import int4_tile_max, int4_tile_max_plain, pack_int4
+from imatch_tpu_torch.ops.kernels.topk import (
+    NEG_INF,
+    tile_max,
+    tile_max_int8,
+    tile_max_int8_plain,
+    tile_max_plain,
+)
+from imatch_tpu_torch.ops.kernels.topk_t import tile_max_t, tile_max_t_plain
 from imatch_tpu_torch.ops.quant import qdot_int8, quantize_weight_int8
 
 BF16_TOL = 2 * 2.0**-7
@@ -124,6 +140,98 @@ def test_engine_matches_brute_force_on_card(cuda):
     bs, bi = torch.sort(bs, dim=1, descending=True, stable=True)
     assert torch.equal(i, bi[:, :10])
     torch.testing.assert_close(s, bs[:, :10], rtol=1e-5, atol=1e-5)
+
+
+def _unit_corpus(n, d, device, seed, dead=0.05):
+    g = torch.Generator(device=device).manual_seed(seed)
+    corpus = torch.randn((n, d), generator=g, device=device)
+    corpus /= corpus.norm(dim=1, keepdim=True)
+    corpus[-64:] = corpus[:64]  # duplicate rows
+    valid = torch.rand((n,), generator=g, device=device) >= dead
+    return corpus, valid
+
+
+@pytest.mark.parametrize("n,nq", [(8192, 1), (8192, 5), (8192, 16), (8192, 33), (1 << 20, 16)])
+def test_tile_max_int8_bit_identical(cuda, n, nq):
+    corpus, valid = _unit_corpus(n, 768, cuda, seed=nq)
+    valid[1024:1536] = False  # a tile with no valid row
+    dc = prepare_device_corpus(corpus, valid, tile_n=512, score_dtype=torch.int8, device=cuda)
+    qi, qscale = _int8_queries(corpus[:nq] + 0.01, dc.scoring.shape[1])
+    before = tile_max_int8.launches
+    got = tile_max_int8(qi, dc.scoring, qscale, dc.scale, dc.valid, 512)
+    torch.cuda.synchronize()
+    assert tile_max_int8.launches == before + 1
+    want = tile_max_int8_plain(qi, dc.scoring, qscale, dc.scale, dc.valid, 512)
+    assert torch.equal(got, want)
+    assert (got[:, 2] == NEG_INF).all()
+
+
+def test_int8_tiers_match_brute_force_on_card(cuda):
+    corpus, valid = _unit_corpus(20000, 768, cuda, seed=4, dead=0.01)
+    queries = corpus[:8].clone()
+    bs = torch.where(valid[None, :], queries @ corpus.T, NEG_INF)
+    bs, bi = torch.sort(bs, dim=1, descending=True, stable=True)
+    dc = prepare_device_corpus(corpus, valid, tile_n=512, score_dtype=torch.int8, margin=16, device=cuda)
+    s, i = tilemax_topk(queries, dc, k=10)
+    assert torch.equal(i, bi[:, :10])
+    torch.testing.assert_close(s, bs[:, :10], rtol=1e-5, atol=1e-5)
+    hc = prepare_host_rescore_corpus(corpus.cpu().numpy(), valid.cpu().numpy(), device=cuda)
+    hs, hi = host_rescore_topk(queries, hc, k=10)
+    assert (hi == bi[:, :10].cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("n,d,nq,tile_n", [(4096, 512, 8, 512), (4096, 96, 3, 512), (1 << 20, 512, 8, 2048)])
+def test_int4_tile_max_matches_plain(cuda, n, d, nq, tile_n):
+    corpus, _ = _unit_corpus(n, d, cuda, seed=5)
+    valid = torch.arange(n, device=cuda) % 97 != 0
+    packed, side, _, _ = pack_int4(corpus, valid)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    qbf = torch.randn((nq, d), generator=g, device=cuda)
+    qbf = (qbf / qbf.norm(dim=1, keepdim=True)).bfloat16()
+    before = int4_tile_max.launches
+    got = int4_tile_max(qbf, packed, side, tile_n)
+    torch.cuda.synchronize()
+    assert int4_tile_max.launches == before + 1
+    torch.testing.assert_close(got, int4_tile_max_plain(qbf, packed, side, tile_n), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [16384, 1 << 20])
+@pytest.mark.parametrize("tile_n", [512, 1024, 2048, 4096])
+def test_tile_max_t_matches_plain_and_k1(cuda, n, tile_n):
+    corpus, valid = _unit_corpus(n, 512, cuda, seed=7, dead=0.01)
+    scoring = torch.zeros((n, 640), device=cuda)
+    scoring[:, :512] = corpus
+    scoring[:, 512] = torch.where(valid, 0.0, -4.0)
+    scoring = scoring.bfloat16()
+    q = torch.zeros((8, 640), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q[:, :512] = torch.randn((8, 512), generator=g, device=cuda)  # the script's: random unit queries
+    q[:, :512] /= q[:, :512].norm(dim=1, keepdim=True)
+    q[:, 512] = 1.0
+    q = q.bfloat16()
+    st = scoring.T.contiguous()
+    before = tile_max_t.launches
+    got = tile_max_t(q, st, tile_n)
+    torch.cuda.synchronize()
+    assert tile_max_t.launches == before + 1
+    torch.testing.assert_close(got, tile_max_t_plain(q, st, tile_n), rtol=0, atol=1e-5)
+    k1 = tile_max(q, scoring, torch.ones((n,), dtype=torch.bool, device=cuda), tile_n)
+    torch.testing.assert_close(got, k1, rtol=0, atol=1e-6)
+
+
+def test_new_kernels_raise_instead_of_falling_back(cuda):
+    before = (tile_max_int8.launches, int4_tile_max.launches, tile_max_t.launches)
+    c8 = torch.zeros((1024, 24), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tile_max_int8(c8[:2], c8, torch.ones(2, device=cuda), torch.ones(1024, device=cuda),
+                      torch.ones(1024, dtype=torch.bool, device=cuda), 512)
+    with pytest.raises(TypeError):
+        int4_tile_max(torch.ones((8, 512), device=cuda), torch.zeros((1024, 256), dtype=torch.int8, device=cuda),
+                      torch.ones((8, 1024), dtype=torch.bfloat16, device=cuda), 512)
+    with pytest.raises(ValueError, match="tile_n"):
+        tile_max_t(torch.ones((8, 640), dtype=torch.bfloat16, device=cuda),
+                   torch.ones((640, 3072), dtype=torch.bfloat16, device=cuda), 768)
+    assert (tile_max_int8.launches, int4_tile_max.launches, tile_max_t.launches) == before
 
 
 def _assert_codes(got, ref, frac):

@@ -6,7 +6,10 @@ to the port), driven in-process through httpx's ASGITransport as in
 tests/test_api.py; the port runs on ``device="cpu"``. The same uploads
 must give the same ids, 409 on a duplicate, identical text, image and
 multimodal top-k with similarity ``1 - d/2``, ``limit=0`` -> up to 1000,
-and 422 for string fields sent as file parts.
+and 422 for string fields sent as file parts. The search tiers that the
+environment selects (``IMATCH_SCORE_DTYPE=int8``,
+``IMATCH_INDEX_ENGINE=tilemax-host``) answer as the JAX app does under
+the same environment.
 """
 
 import asyncio
@@ -53,16 +56,20 @@ def embedders():
     return JaxEmbedder(config=JAX_TINY), ClipEmbedder(config=TINY, params=tree, device="cpu")
 
 
-@pytest.fixture
-def apps(tmp_path, embedders):
+def _make_apps(tmp_path, embedders):
     jax_emb, port_emb = embedders
     jax_app = jax_create_app(
         JaxState(root=str(tmp_path / "jax"), embedder=jax_emb, captioner=JaxNullCaptioner())
     )
-    port_app = create_app(
-        AppState(root=str(tmp_path / "port"), embedder=port_emb, captioner=NullCaptioner(), device="cpu")
+    port_state = AppState(
+        root=str(tmp_path / "port"), embedder=port_emb, captioner=NullCaptioner(), device="cpu"
     )
-    return _Client(jax_app), _Client(port_app)
+    return _Client(jax_app), _Client(create_app(port_state)), port_state
+
+
+@pytest.fixture
+def apps(tmp_path, embedders):
+    return _make_apps(tmp_path, embedders)[:2]
 
 
 def _png(seed, h=48, w=64):
@@ -193,3 +200,30 @@ def test_health_and_routes_still_to_port(apps):
     r = pa.post("/api/search/batch")
     assert r.status_code == 501 and "ROADMAP.md" in r.json()["error"]
     assert pa.get("/api/nope").status_code == 404
+
+
+@pytest.mark.parametrize(
+    "env,engine",
+    [({"IMATCH_INDEX_ENGINE": "tilemax-host"}, "tilemax-host"), ({"IMATCH_SCORE_DTYPE": "int8"}, "tilemax")],
+    ids=["tilemax-host", "int8"],
+)
+def test_search_tiers_from_the_environment_match(tmp_path, embedders, monkeypatch, env, engine):
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    ja, pa, port_state = _make_apps(tmp_path, embedders)
+    _fill((ja, pa))
+    for limit in (4, 0):
+        ra = ja.post("/api/search/text", data={"query": "a red drill", "limit": limit})
+        rb = pa.post("/api/search/text", data={"query": "a red drill", "limit": limit})
+        _same_ranking(ra, rb)
+        # the same JSON, apart from the float score (checked above), the
+        # app's root directory and the upload time
+        own = ("similarity_score", "processed_url", "created_at")
+        for a, b in zip(ra.json()["results"], rb.json()["results"]):
+            assert a.keys() == b.keys()
+            assert {k: v for k, v in a.items() if k not in own} == {
+                k: v for k, v in b.items() if k not in own
+            }
+    stats = port_state.store.stats()
+    assert stats["last_build"]["engine"] == engine
+    assert stats["score_dtype"] == ("int8" if engine == "tilemax" else "bfloat16")

@@ -140,13 +140,16 @@ def test_validation_errors_match():
 
 
 def test_engines_and_dtypes_not_ported_raise(monkeypatch):
-    for engine in ("sharded", "tilemax-host", "ivf", "ivf-sharded"):
+    for engine in ("sharded", "ivf", "ivf-sharded"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             VectorStore(engine=engine, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VectorStore(score_dtype="int8", device="cpu")
     with pytest.raises(ValueError):
         VectorStore(engine="hnsw", device="cpu")
+    with pytest.raises(ValueError):
+        VectorStore(score_dtype="int4", device="cpu")
+    # ported: the int8 score dtype and the tilemax-host tier
+    assert VectorStore(score_dtype="int8", device="cpu").score_dtype == torch.int8
+    assert VectorStore(engine="tilemax-host", device="cpu").tile_n == 512
     monkeypatch.setenv("IMATCH_INDEX_ENGINE", "auto")
     monkeypatch.setenv("IMATCH_SCORE_DTYPE", "fp32")
     s = VectorStore(device="cpu")
