@@ -12,12 +12,15 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. Build the CUDA kernels from imatch_tpu_torch/csrc/ with nvcc, one
    process a source, all started together.
 3. K2 (flash attention) against its plain PyTorch version at the CLIP
-   towers' shapes, bf16 and fp32, with a fully masked case.
+   towers' shapes, bf16 and fp32, with a fully masked case, and at the
+   bulk-ingest chunk (64, 16, 257, 64). bf16 runs the tensor-core kernel
+   (flash_fwd_mma_kernel), fp32 the CUDA-core one (flash_fwd_kernel).
 4. K1 (tile max) against its plain version, and the K1 engine against a
    full fp32 brute-force top-k, on a 2^20 x 768 corpus with tombstones and
-   duplicate rows; then K1's int8 variant, bit-identical to its plain
-   version, and the int8 engine against the brute force, on the same
-   corpus at Q = 1, 8, 16.
+   duplicate rows, at Q = 1 and 16 (bf16 at Q = 16 runs the tensor-core
+   kernel, tile_max_mma_kernel); then K1's int8 variant, bit-identical to
+   its plain version, and the int8 engine against the brute force, on the
+   same corpus at Q = 1, 8, 16.
 5. K3 (row quantize) and K4 (LayerNorm + quantize) against their plain
    versions at the W8A8 image tower's shapes (rows B x 257 for B = 1, 32,
    64; D 1024 and 4096), bf16 and fp32, with a zero row.
@@ -46,7 +49,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    CPU, and the W8A8 longclip tower against the fp32 tower on the card.
 10. The two experiment entry points, python -m imatch_tpu_torch.scripts.
    exp_int4_kernel (K5) and exp_pallas_search (K6 beside K1), run to the
-   end with the K5 and K6 launch counts read around them.
+   end with the K5, K6 and tensor-core K1 launch counts read around them
+   (exp_pallas_search's row-major phase runs K1 bf16 at Q = 8).
+11. K2's and SDPA's device time at each phase-3 case from torch.profiler
+   traces (``device_ms``, ``library_device_ms``): at B = 1 a call's CUDA-
+   event time is the host's launch time. Last, because a profiler session
+   slows the host's later launches.
+
+The device breakdowns attribute profiler events to K1-K6 by kernel
+symbol (``_kernel_key``): flash_fwd_kernel and flash_fwd_mma_kernel are
+K2, tile_max_kernel and tile_max_mma_kernel are K1.
 
 The last four lines are the two scripts' JSON lines, {"kernels": [...]}
 with each kernel's measured and bound times, and the device JSON. It
@@ -86,6 +98,29 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     from imatch_tpu_torch.scripts._common import cuda_ms
 
     return cuda_ms(fn, iters, warmup)
+
+
+def device_ms(fn, key=None, iters: int = 20) -> float:
+    """Device time of one call from a torch.profiler trace: its kernels
+    named ``key`` (``_kernel_key``), or all of its kernels. CUDA events
+    around back-to-back calls (``time_ms``) time the host instead where
+    the host takes longer to launch a call than the card to run it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(
+        e.time_range.elapsed_us()
+        for e in prof.events()
+        if e.device_type == DeviceType.CUDA and (key is None or _kernel_key(e.name) == key)
+    )
+    return us / iters / 1e3
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype_name: str):
@@ -144,7 +179,14 @@ def _k2_bound(b, h, s, dh, causal, kv_len, dtype_name):
     return bound_ms(4 * b * h * s * dh * itemsize, 4 * b * h * dh * pairs, dtype_name)
 
 
-def k2_case(shape, causal, dtype, kv_len=None, seed=0) -> dict:
+def _k2_inputs(shape, dtype, seed=0):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3)]
+
+
+def k2_case(shape, causal, dtype, kv_len=None) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -152,10 +194,7 @@ def k2_case(shape, causal, dtype, kv_len=None, seed=0) -> dict:
 
     b, h, s, dh = shape
     kv_len = s if kv_len is None else kv_len
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (
-        torch.randn(shape, generator=g, device="cuda").to(dtype) for _ in range(3)
-    )
+    q, k, v = _k2_inputs(shape, dtype)
     out = flash_mha(q, k, v, causal=causal, kv_len=kv_len)
     torch.cuda.synchronize()
     ref = flash_mha_plain(q.float(), k.float(), v.float(), causal=causal, kv_len=kv_len)
@@ -207,6 +246,7 @@ def phase_k2() -> list:
         ((4, 4, 130, 64), False, 70),  # keys past kv_len masked
         ((1, 16, 257, 64), False, None),  # one upload's image tower call
         ((1, 12, 248, 64), True, None),  # one text query's tower call
+        ((64, 16, 257, 64), False, None),  # the bulk-ingest chunk's image tower
     ]
     rows = []
     for shape, causal, kv_len in cases:
@@ -216,6 +256,31 @@ def phase_k2() -> list:
     if bad:
         raise AssertionError(f"K2 disagrees with its plain version in {len(bad)} cases")
     return rows
+
+
+def phase_k2_device(k2_rows) -> None:
+    """Phase 11: K2's and SDPA's device time at each phase-3 case, from
+    torch.profiler traces, into the rows. It runs last: after a profiler
+    session the host launches more slowly on the card's machine (CUDA
+    events read K2 at B = 1 about twice as slow), so every CUDA-event time
+    is taken before it."""
+    import torch
+    import torch.nn.functional as F
+
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
+
+    for row in k2_rows:
+        q, k, v = _k2_inputs(tuple(row["shape"]), getattr(torch, row["dtype"]))
+        causal, kv_len = row["causal"], row["kv_len"]
+        row["device_ms"] = device_ms(lambda: flash_mha(q, k, v, causal=causal, kv_len=kv_len), "K2")
+        row["library_device_ms"] = (
+            device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+            if row["library_ms"] is not None
+            else None
+        )
+        keys = ("shape", "causal", "kv_len", "dtype", "kernel_ms", "device_ms", "library_ms",
+                "library_device_ms", "bound_ms")
+        log("K2 device " + json.dumps({k: row[k] for k in keys}))
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -943,9 +1008,9 @@ def _kernel_key(name: str):
         return "K6"
     if "tile_max_int8_kernel" in name:
         return "K1_int8"
-    if "tile_max_kernel" in name:
+    if "tile_max_kernel" in name or "tile_max_mma_kernel" in name:
         return "K1"
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_kernel" in name or "flash_fwd_mma_kernel" in name:
         return "K2"
     if "quant_rows_kernel" in name:  # template <T, NV, LN>: LN true is K4
         return "K4" if "true>" in name else "K3"
@@ -1478,25 +1543,31 @@ def phase_w8a8_fidelity(w8a8) -> None:
 
 
 def phase_scripts():
-    """The two experiment entry points on the card, with the K5 and K6
-    launch counts read around them; returns the counts and the scripts'
-    JSON lines (printed by main before the kernels line)."""
+    """The two experiment entry points on the card, with the K5, K6 and
+    tensor-core K1 launch counts read around them; returns the counts and
+    the scripts' JSON lines (printed by main before the kernels line)."""
     from imatch_tpu_torch.ops.kernels.int4_topk import int4_tile_max
+    from imatch_tpu_torch.ops.kernels.topk import tile_max
     from imatch_tpu_torch.ops.kernels.topk_t import tile_max_t
     from imatch_tpu_torch.scripts import exp_int4_kernel, exp_pallas_search
 
     int4_tile_max.launches = 0
     tile_max_t.launches = 0
+    tile_max.mma_launches = 0
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         k5 = exp_int4_kernel.main("cuda")
         k6 = exp_pallas_search.main("cuda")
-    launches = {"K5": int4_tile_max.launches, "K6": tile_max_t.launches}
+    launches = {
+        "K5": int4_tile_max.launches,
+        "K6": tile_max_t.launches,
+        "K1_mma": tile_max.mma_launches,
+    }
     log(f"scripts: ran in {time.perf_counter() - t0:.1f} s, launches {json.dumps(launches)}")
     if not (k5["kernel_matches_plain_torch"] and k6["transposed_matches"]):
         raise AssertionError("an experiment script's correctness check failed")
-    if not (k6["transposed_528_matches"] and launches["K5"] and launches["K6"]):
+    if not (k6["transposed_528_matches"] and all(launches.values())):
         raise AssertionError(f"an experiment script failed: {launches}")
     return launches, buf.getvalue().strip().splitlines()
 
@@ -1504,16 +1575,19 @@ def phase_scripts():
 def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launches) -> dict:
     """One entry a kernel at the shapes its main path gives it: the image
     tower's attention for one upload, phase 1 of one search over the
-    2^20-row store (bf16 and int8, the tilemax engine's 512-row tiles), the
-    W8A8 tower's quantizes in the bulk-ingest chunk of 64 images (bf16), and
-    K5 and K6 at their scripts' shapes (8 queries over 2^20 rows, tile
-    2048). Launches are those of each path's run: slices 1-3 for K1-K4,
-    the two experiment scripts for K5 and K6."""
+    2^20-row store (bf16 and int8, the tilemax engine's 512-row tiles), K1
+    bf16 at 16 queries (the tensor-core kernel), the W8A8 tower's quantizes
+    in the bulk-ingest chunk of 64 images (bf16), and K5 and K6 at their
+    scripts' shapes (8 queries over 2^20 rows, tile 2048). Launches are
+    those of each path's run: slices 1-3 for K1-K4, the two experiment
+    scripts for K5, K6 and the tensor-core K1 (exp_pallas_search's Q = 8
+    row-major phase)."""
 
     def pick(table, **want):
         return next(r for r in table if all(r[k] == v for k, v in want.items()))
 
     k1 = pick(k1_rows, q=1, dtype="bfloat16", tile_n=512)
+    k1q16 = pick(k1_rows, q=16, dtype="bfloat16", tile_n=512)
     k1i8 = pick(k1i8_rows, q=1)
     k2 = pick(k2_rows, shape=[1, 16, 257, 64], dtype="bfloat16")
     k5 = pick(k5_rows, tile_n=2048)
@@ -1527,6 +1601,15 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
             "imatch_tpu/ops/pallas/topk.py:84",
             "K1",
             f"Q=1 x {k1['n']}x{k1['d']} bf16, tile_n {k1['tile_n']}",
+        ),
+        (
+            "K1 tile_max, bf16 Q>=2 (tensor cores)",
+            k1q16,
+            "imatch_tpu_torch/csrc/tile_max.cu",
+            "imatch_tpu/ops/pallas/topk.py:84",
+            "K1_mma",
+            f"Q=16 x {k1q16['n']}x{k1q16['d']} bf16, tile_n 512; launches: "
+            "exp_pallas_search's Q=8 row-major phase",
         ),
         (
             "K1 tile_max_int8",
@@ -1592,6 +1675,9 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
             "library_ms": row["library_ms"],
             "shape": shape,
         }
+        if key == "K2":  # the card's time alone: at B = 1 a call is host-bound
+            entry["device_ms"] = row["device_ms"]
+            entry["library_device_ms"] = row["library_device_ms"]
         if key in ("K3", "K4"):
             entry["library_note"] = "no single PyTorch call computes a per-row int8 quantize"
         elif "library_note" in row:
@@ -1632,6 +1718,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     script_launches, script_lines = phase_scripts()
     launches.update(script_launches)
+    phase_k2_device(k2_rows)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     for line in script_lines:
         print(line)

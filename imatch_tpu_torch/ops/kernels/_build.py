@@ -6,9 +6,10 @@ own shared library with a plain C interface,
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-and loaded with ``ctypes``. The file name carries a hash of the source and
-the flags, so an edited kernel is rebuilt and a stale library is never
-loaded. ``build/`` sits at the repository root and is ignored by git.
+and loaded with ``ctypes``. The file name carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited kernel is
+rebuilt and a stale library is never loaded. ``build/`` sits at the
+repository root and is ignored by git.
 Several sources build in parallel (one nvcc process each, all started
 together). A failed build raises with nvcc's stderr; there is no fallback.
 Nothing here runs when the module is imported.
@@ -59,10 +60,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
+    """The library's path; its hash covers the source, every shared header
+    under csrc/ and the flags."""
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -6,17 +6,21 @@ Replaces ``imatch_tpu/ops/pallas/flash_attention.py::_flash_kernel``
 its header says what bounds it on the H100 and how the design answers.
 
 Contract (the same as the Pallas kernel's): ``(B, H, S, Dh)`` q, k, v in
-float32 or bfloat16; q is scaled by ``Dh ** -0.5`` in fp32; fp32 online
-softmax and accumulation; optional causal mask; keys at or past
-``kv_len`` (default S) are masked; a row with no visible key is 0; the
-output is in q's dtype.
+float32 or bfloat16; ``Dh ** -0.5`` applied in fp32; fp32 online softmax
+and accumulation; optional causal mask; keys at or past ``kv_len``
+(default S) are masked; a row with no visible key is 0; the output is in
+q's dtype. fp32 runs on the CUDA cores (no TF32: the fidelity path); bf16
+runs on the tensor cores with fp32 logits and accumulators, the
+probabilities rounded to bf16 before ``P @ V`` (at most 2^-9 relative
+each, inside the bf16 bar the tests hold it to).
 
 ``flash_mha`` launches the kernel for CUDA tensors and uses
 ``flash_mha_plain`` only for CPU tensors. On a CUDA tensor it checks
 device, dtype, shape and layout and raises on anything the kernel does
 not take (head dims that are not a multiple of 8 in [8, 128], a head dim
-that is not contiguous); it never falls back. ``flash_mha.launches``
-counts kernel launches.
+that is not contiguous; for bf16, rows that do not start 16-byte aligned,
+since the kernel copies them 16 bytes at a time); it never falls back.
+``flash_mha.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -94,6 +98,17 @@ def _check(q, k, v, kv_len):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous")
+    if q.dtype == torch.bfloat16:
+        # The bf16 kernel copies rows 16 bytes at a time: every base pointer
+        # a multiple of 16 bytes, every stride of a dim it steps along a
+        # multiple of 8 elements (bitwise or: this runs at every launch).
+        sq, sk, sv = q.stride(), k.stride(), v.stride()
+        steps = 0
+        for i in range(3):
+            if q.shape[i] > 1:
+                steps |= sq[i] | sk[i] | sv[i]
+        if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 or steps % 8:
+            raise ValueError("bf16 q, k and v rows must start 16-byte aligned")
     if not 0 <= kv_len <= q.shape[-2]:
         raise ValueError(f"kv_len {kv_len} outside [0, {q.shape[-2]}]")
     if q.shape[0] * q.shape[1] > 65535:
@@ -119,30 +134,39 @@ def flash_mha(
     b, h, s, dh = q.shape
     kv_len = s if kv_len is None else kv_len
     _check(q, k, v, kv_len)
-    out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    # (B, H, S, Dh) over (B, S, H, Dh) memory
+    ostrides = (s * h * dh, dh, h * dh)
+    out = torch.empty_strided((b, h, s, dh), (*ostrides, 1), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     strides = (ctypes.c_longlong * 12)(
-        *(t.stride(i) for t in (q, k, v, out) for i in range(3))
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *ostrides
     )
     lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_fwd(
-            q.data_ptr(),
-            k.data_ptr(),
-            v.data_ptr(),
-            out.data_ptr(),
-            _DTYPES[q.dtype],
-            b,
-            h,
-            s,
-            dh,
-            kv_len,
-            int(causal),
-            ctypes.cast(strides, ctypes.c_void_p),
-            stream,
-        )
+    dev = q.get_device()
+    # The B=1 towers are bound by the host's launch rate, so the launch
+    # takes the stream's raw handle (no Stream object) and enters q's
+    # device only when it is not the current one.
+    args = (
+        q.data_ptr(),
+        k.data_ptr(),
+        v.data_ptr(),
+        out.data_ptr(),
+        _DTYPES[q.dtype],
+        b,
+        h,
+        s,
+        dh,
+        kv_len,
+        int(causal),
+        ctypes.cast(strides, ctypes.c_void_p),
+        torch._C._cuda_getCurrentRawStream(dev),
+    )
+    if dev == torch.cuda.current_device():
+        rc = lib.flash_attention_fwd(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.flash_attention_fwd(*args)
     _build.check(lib, _NAME, rc)
     flash_mha.launches += 1
     return out

@@ -23,9 +23,12 @@ accumulated exactly as an integer, then ``(dot * qscale) * scale``, masked,
 max per tile. It is bit-identical to ``tile_max_int8_plain``.
 
 CUDA tensors launch the kernel; CPU tensors use the plain versions. On a
-CUDA tensor the wrappers check device, dtype, shape and contiguity and
-raise rather than fall back. ``tile_max.launches`` and
-``tile_max_int8.launches`` count the launches of each variant.
+CUDA tensor the wrappers check device, dtype, shape, contiguity and
+16-byte alignment and raise rather than fall back. bf16 at Q >= 2 runs on
+the tensor cores (``tile_max_mma_kernel``); Q = 1 and fp32 on the CUDA
+cores. ``tile_max.launches`` and ``tile_max_int8.launches`` count the
+launches of each variant; ``tile_max.mma_launches`` counts those of
+``tile_max``'s that went to the tensor-core kernel.
 """
 
 from __future__ import annotations
@@ -118,6 +121,8 @@ def _check(queries, scoring, valid, tile_n):
     if scoring.shape[1] % 8:
         raise ValueError("the corpus dim must be a multiple of 8 (16-byte rows)")
     _same_device_contiguous(scoring, queries=queries, scoring=scoring, valid=valid)
+    if queries.data_ptr() % 16 or scoring.data_ptr() % 16:
+        raise ValueError("queries and corpus must start 16-byte aligned (16-byte loads)")
 
 
 def _same_device_contiguous(corpus, **tensors):
@@ -181,10 +186,13 @@ def tile_max(
         )
     _build.check(lib, _NAME, rc)
     tile_max.launches += 1
+    if scoring.dtype == torch.bfloat16 and queries.shape[0] >= 2:  # csrc dispatch
+        tile_max.mma_launches += 1
     return out
 
 
 tile_max.launches = 0
+tile_max.mma_launches = 0
 
 
 def tile_max_int8(

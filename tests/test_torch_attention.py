@@ -6,7 +6,16 @@ JAX suite runs it on the CPU) and ``_mha_xla`` at HIGHEST, at fp32 with
 rtol = atol = 2e-5, the bar of tests/test_pallas.py. The kernel itself
 runs only on the card: tests/test_torch_kernels_cuda.py holds it to its
 plain version there.
+
+The bf16 kernel's rounding points (fp32 logits of the bf16 inputs, Dh^-1/2
+on the logits, an online softmax over 64-key tiles in base 2, P rounded to
+bf16 before P @ V, fp32 accumulation) are emulated in plain torch and held
+to ``_mha_xla`` at fp32 HIGHEST on the same bf16 values, at the bar the
+card holds the kernel to: 2 bf16 ulps at magnitude 1 absolute plus 2^-8
+relative.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -104,3 +113,62 @@ def test_cuda_wrapper_refuses_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_mha(q, q, q)
 
+
+
+def test_cuda_wrapper_refuses_unaligned_bf16_rows():
+    """The bf16 kernel copies rows 16 bytes at a time: a view whose rows
+    do not start 16-byte aligned raises before any launch."""
+    from imatch_tpu_torch.ops.kernels.flash_attention import _check
+
+    x = torch.zeros((1, 2, 16, 68), dtype=torch.bfloat16)[..., 4:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _check(x, x, x, 16)
+    x = torch.zeros((1, 2, 16, 68), dtype=torch.float32)[..., 4:]
+    _check(x, x, x, 16)  # fp32 reads elements one by one: any offset
+
+
+BF16_ATOL = 2 * 2.0**-7
+BF16_RTOL = 2.0**-8
+KEY_TILE = 64
+
+
+def _bf16_kernel_emulation(q, k, v, *, causal):
+    """flash_fwd_mma_kernel's arithmetic on bf16 (B, H, S, Dh) tensors, in
+    fp32 torch: logits in fp32, scaled by log2(e) * Dh^-1/2; per 64-key
+    tile, the running max m (starting at -1e30), P = exp2(s - m) rounded
+    to bf16, l the sum of the rounded P, O rescaled by exp2(m_old - m_new)
+    and accumulated in fp32; the output O / l rounded to bf16."""
+    s, dh = q.shape[-2], q.shape[-1]
+    scale = torch.tensor(math.log2(math.e), dtype=torch.float32) / math.sqrt(dh)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        pos = torch.arange(s)
+        logits = logits.masked_fill(pos[None, :] > pos[:, None], float("-inf"))
+    m = torch.full(q.shape[:-1], -1e30)
+    l = torch.zeros(q.shape[:-1])
+    acc = torch.zeros(q.shape, dtype=torch.float32)
+    for k0 in range(0, s, KEY_TILE):
+        blk = logits[..., k0 : k0 + KEY_TILE]
+        m_new = torch.maximum(m, blk.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(blk - m_new[..., None]).to(torch.bfloat16).float()
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.matmul(p, v[..., k0 : k0 + KEY_TILE, :].float())
+        m = m_new
+    return torch.where(l[..., None] > 0, acc / l[..., None], 0.0).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("dh", [64, 72])
+@pytest.mark.parametrize("s,causal", [(257, False), (248, True)])
+def test_bf16_rounding_points_match_jax(s, causal, dh):
+    rng = np.random.default_rng(s + dh)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal((1, 2, s, dh)).astype(np.float32)).bfloat16()
+        for _ in range(3)
+    )
+    got = _bf16_kernel_emulation(q, k, v, causal=causal)
+    jq, jk, jv = (jnp.asarray(x.float().numpy()) for x in (q, k, v))
+    ref = np.asarray(
+        _mha_xla(jq, jk, jv, causal=causal, precision=jax.lax.Precision.HIGHEST)
+    )
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=BF16_RTOL, atol=BF16_ATOL)

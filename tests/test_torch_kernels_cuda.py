@@ -87,15 +87,59 @@ def test_flash_attention_matches_plain(cuda, dtype, shape, causal, kv_len):
     torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
 
 
-def test_flash_attention_reads_strided_heads(cuda):
+def _assert_bf16_close(out, ref):
+    """chip_smoke.py's bf16 bar: 2 bf16 ulps at magnitude 1 absolute plus
+    half an ulp (2^-8) relative, against fp32 math on the same inputs."""
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), ref, rtol=2.0**-8, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1, 15, 17, 64, 65, 257])
+@pytest.mark.parametrize("dh", [8, 16, 64, 72, 128])
+def test_flash_attention_bf16_tensor_cores(cuda, dh, s, causal):
+    """The tensor-core kernel at every head-dim shape class (one k16 step,
+    a k16 step with a zero-padded half, Dh/8 odd), and sequence lengths
+    around its 16-row warps and 64-key tiles, at B = 1 (few blocks, one
+    warp each)."""
+    q, k, v = _qkv((1, 3, s, dh), torch.bfloat16, cuda, seed=s + dh)
+    before = flash_mha.launches
+    out = flash_mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_mha.launches == before + 1
+    _assert_bf16_close(out, flash_mha_plain(q.float(), k.float(), v.float(), causal=causal))
+
+
+@pytest.mark.parametrize(
+    "shape,causal,kv_len",
+    [
+        ((1, 2, 257, 64), True, 100),  # causal and keys past kv_len masked
+        ((2, 4, 130, 72), True, 70),
+        ((1, 3, 65, 128), True, 1),
+        ((2, 3, 77, 72), False, 0),  # every key masked: rows write 0
+        ((1, 2, 17, 16), True, 0),
+        ((64, 16, 257, 64), False, None),  # the bulk-ingest chunk: 4-warp blocks
+    ],
+)
+def test_flash_attention_bf16_masks(cuda, shape, causal, kv_len):
+    q, k, v = _qkv(shape, torch.bfloat16, cuda, seed=7)
+    out = flash_mha(q, k, v, causal=causal, kv_len=kv_len)
+    ref = flash_mha_plain(q.float(), k.float(), v.float(), causal=causal, kv_len=kv_len)
+    _assert_bf16_close(out, ref)
+    if kv_len == 0:
+        assert not bool(out.float().abs().max())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,dh", [(2, 50, 12, 64), (1, 257, 16, 64), (3, 77, 8, 72), (1, 1, 4, 72)])
+def test_flash_attention_reads_strided_heads(cuda, b, s, h, dh, causal):
     """The fused-QKV layout the towers hand it: (B, S, 3, H, Dh) views."""
-    b, s, h, dh = 2, 50, 12, 64
     g = torch.Generator(device=cuda).manual_seed(1)
     qkv = torch.randn((b, s, 3, h, dh), generator=g, device=cuda).bfloat16()
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-    out = flash_mha(q, k, v)
-    ref = flash_mha_plain(q.float(), k.float(), v.float())
-    torch.testing.assert_close(out.float(), ref, rtol=BF16_TOL, atol=BF16_TOL)
+    out = flash_mha(q, k, v, causal=causal)
+    ref = flash_mha_plain(q.float(), k.float(), v.float(), causal=causal)
+    _assert_bf16_close(out, ref)
 
 
 def test_flash_attention_raises_instead_of_falling_back(cuda):
@@ -106,6 +150,9 @@ def test_flash_attention_raises_instead_of_falling_back(cuda):
     q, k, v = _qkv((1, 2, 16, 64), torch.float16, cuda)
     with pytest.raises(TypeError):
         flash_mha(q, k, v)
+    x = torch.zeros((1, 2, 16, 68), dtype=torch.bfloat16, device=cuda)[..., 4:]
+    with pytest.raises(ValueError, match="16-byte aligned"):  # rows 136 bytes apart
+        flash_mha(x, x, x)
     assert flash_mha.launches == before
 
 
@@ -125,6 +172,25 @@ def test_tile_max_matches_plain(cuda, dtype, nq):
     assert tile_max.launches == before + 1
     torch.testing.assert_close(got, tile_max_plain(qs, dc.scoring, dc.valid, 512), rtol=1e-5, atol=1e-5)
     assert (got[:, 2] == NEG_INF).all()
+
+
+@pytest.mark.parametrize("tile_n", [512, 2048])
+@pytest.mark.parametrize("nq", [2, 3, 8, 9, 16, 17, 33])
+@pytest.mark.parametrize("d", [768, 200])
+def test_tile_max_bf16_tensor_cores(cuda, d, nq, tile_n):
+    """bf16 at Q >= 2 (the tensor-core kernel): one or two n-tiles, Q past
+    a chunk, a corpus dim that is not a multiple of 32 (a partial chunk),
+    and a tile with no valid row."""
+    corpus, valid = _unit_corpus(8192, d, cuda, seed=nq + d)
+    valid[2048:4096] = False  # tile 1 at 2048, tiles 4-7 at 512
+    scoring = corpus.bfloat16()
+    qs = (corpus[:nq] + 0.05 * corpus[nq : 2 * nq]).bfloat16()
+    before = (tile_max.launches, tile_max.mma_launches)
+    got = tile_max(qs, scoring, valid, tile_n)
+    torch.cuda.synchronize()
+    assert (tile_max.launches, tile_max.mma_launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, tile_max_plain(qs, scoring, valid, tile_n), rtol=1e-5, atol=1e-5)
+    assert (got[:, 4096 // tile_n - 1] == NEG_INF).all()
 
 
 def test_engine_matches_brute_force_on_card(cuda):
