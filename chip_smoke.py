@@ -24,9 +24,10 @@ Phases, in order; any failure exits non-zero and prints no result:
 5. K3 (row quantize) and K4 (LayerNorm + quantize) against their plain
    versions at the W8A8 image tower's shapes (rows B x 257 for B = 1, 32,
    64; D 1024 and 4096), bf16 and fp32, with a zero row.
-5b. K5 (int4 tile max) and K6 (tile max over a transposed corpus) against
-   their plain versions at their scripts' shapes: 8 queries over 2^20 rows
-   of 512 int4 codes; 8 queries over a (640, 2^20) and a (528, 2^20) bf16
+5b. K5 (int4 tile max, on the tensor cores) and K6 (tile max over a
+   transposed corpus) against their plain versions at their scripts'
+   shapes: 8 queries over 2^20 rows of 512 int4 codes, timed at tiles 512,
+   1024 and 2048; 8 queries over a (640, 2^20) and a (528, 2^20) bf16
    corpus.
 6. The first slice end to end: the port's app at longclip-l14-248 (random
    weights from a seed) served over HTTP by the port's server, holding a
@@ -51,14 +52,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    exp_int4_kernel (K5) and exp_pallas_search (K6 beside K1), run to the
    end with the K5, K6 and tensor-core K1 launch counts read around them
    (exp_pallas_search's row-major phase runs K1 bf16 at Q = 8).
-11. K2's and SDPA's device time at each phase-3 case from torch.profiler
-   traces (``device_ms``, ``library_device_ms``): at B = 1 a call's CUDA-
-   event time is the host's launch time. Last, because a profiler session
-   slows the host's later launches.
+11. Every kernel's device time from torch.profiler traces (``device_ms``
+   and ``device_pct_of_bound``): K2 and SDPA at each phase-3 case
+   (``library_device_ms``), and every other kernels-line entry at its own
+   shape (K1 Q = 1 and 16, K1 int8, K3 and K4 at 16448 bf16 rows, K5 at
+   each tile, K6). Events of back-to-back calls time the host where it
+   launches more slowly than the card runs (K2 at B = 1). Last, because a
+   profiler session slows the host's later launches.
 
 The device breakdowns attribute profiler events to K1-K6 by kernel
-symbol (``_kernel_key``): flash_fwd_kernel and flash_fwd_mma_kernel are
-K2, tile_max_kernel and tile_max_mma_kernel are K1.
+symbol (``kernel_key`` in imatch_tpu_torch/scripts/kernel_ab.py):
+flash_fwd_kernel and flash_fwd_mma_kernel are K2, tile_max_kernel and
+tile_max_mma_kernel are K1, int4_tile_max_mma_kernel is K5.
 
 The last four lines are the two scripts' JSON lines, {"kernels": [...]}
 with each kernel's measured and bound times, and the device JSON. It
@@ -101,26 +106,15 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def device_ms(fn, key=None, iters: int = 20) -> float:
-    """Device time of one call from a torch.profiler trace: its kernels
-    named ``key`` (``_kernel_key``), or all of its kernels. CUDA events
-    around back-to-back calls (``time_ms``) time the host instead where
-    the host takes longer to launch a call than the card to run it."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one call from a torch.profiler trace (kernel_ab.py's
+    ``trace``): the mean launch of its one kernel named ``key``
+    (kernel_ab.py's ``kernel_key``), or all of its kernels. CUDA events around
+    back-to-back calls (``time_ms``) time the host instead where the host
+    takes longer to launch a call than the card to run it."""
+    from imatch_tpu_torch.scripts.kernel_ab import trace
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(
-        e.time_range.elapsed_us()
-        for e in prof.events()
-        if e.device_type == DeviceType.CUDA and (key is None or _kernel_key(e.name) == key)
-    )
-    return us / iters / 1e3
+    t = trace(fn, iters, key)
+    return t["busy_ms"] if key is None else t["mean_ms"][key]
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype_name: str):
@@ -258,29 +252,42 @@ def phase_k2() -> list:
     return rows
 
 
-def phase_k2_device(k2_rows) -> None:
-    """Phase 11: K2's and SDPA's device time at each phase-3 case, from
-    torch.profiler traces, into the rows. It runs last: after a profiler
-    session the host launches more slowly on the card's machine (CUDA
-    events read K2 at B = 1 about twice as slow), so every CUDA-event time
-    is taken before it."""
+def phase_device(k2_rows, traced_rows) -> None:
+    """Phase 11: each kernel's device time (``device_ms``, its own kernel
+    intervals a call in a torch.profiler trace) and its share of its bound
+    (``device_pct_of_bound``): K2 and SDPA at each phase-3 case, and every
+    other kernels-line case at its own shape (the rows that kept a
+    ``_trace`` call). It runs last: after a profiler session the host
+    launches more slowly on the card's machine (CUDA events read K2 at
+    B = 1 about twice as slow), so every CUDA-event time is taken before
+    it."""
     import torch
     import torch.nn.functional as F
 
     from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
 
+    def timed(row, fn, key):
+        row["device_ms"] = device_ms(fn, key)
+        row["device_pct_of_bound"] = 100 * row["bound_ms"] / row["device_ms"]
+
     for row in k2_rows:
         q, k, v = _k2_inputs(tuple(row["shape"]), getattr(torch, row["dtype"]))
         causal, kv_len = row["causal"], row["kv_len"]
-        row["device_ms"] = device_ms(lambda: flash_mha(q, k, v, causal=causal, kv_len=kv_len), "K2")
+        timed(row, lambda: flash_mha(q, k, v, causal=causal, kv_len=kv_len), "K2")
         row["library_device_ms"] = (
             device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
             if row["library_ms"] is not None
             else None
         )
         keys = ("shape", "causal", "kv_len", "dtype", "kernel_ms", "device_ms", "library_ms",
-                "library_device_ms", "bound_ms")
+                "library_device_ms", "bound_ms", "device_pct_of_bound")
         log("K2 device " + json.dumps({k: row[k] for k in keys}))
+    for row in traced_rows:
+        fn, key = row.pop("_trace")
+        timed(row, fn, key)
+        shape = {k: row[k] for k in ("kernel", "rows", "n", "d", "dp", "q", "tile_n", "dtype") if k in row}
+        keys = ("kernel_ms", "device_ms", "bound_ms", "device_pct_of_bound")
+        log(f"{key} device " + json.dumps({**shape, **{k: row[k] for k in keys}}))
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -316,7 +323,7 @@ def brute_force_topk(queries, corpus, valid, k):
     return s[:, :k], i[:, :k]
 
 
-def k1_case(corpus, valid, nq, dtype, tile_n, k=10) -> dict:
+def k1_case(corpus, valid, nq, dtype, tile_n, k=10, trace=False) -> dict:
     import torch
 
     from imatch_tpu_torch.index.search import prepare_device_corpus, tilemax_topk
@@ -364,7 +371,8 @@ def k1_case(corpus, valid, nq, dtype, tile_n, k=10) -> dict:
         "bound_by": bound_by,
     }
     log("K1 " + json.dumps(row))
-    del dc
+    if trace:  # a kernels-line entry: the last phase takes its device time
+        row["_trace"] = (lambda: tile_max(qs, dc.scoring, dc.valid, tile_n), "K1")
     return row
 
 
@@ -376,7 +384,8 @@ def phase_k1() -> list:
     for dtype in (torch.bfloat16, torch.float32):
         for nq in (1, 16):
             for tile_n in (512, 2048):  # the tilemax and pallas engines
-                rows.append(k1_case(corpus, valid, nq, dtype, tile_n))
+                trace = dtype == torch.bfloat16 and tile_n == 512
+                rows.append(k1_case(corpus, valid, nq, dtype, tile_n, trace=trace))
     del corpus, valid
     torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
@@ -449,6 +458,8 @@ def k34_case(kernel, rows, d, dtype, seed=0) -> dict:
         "bound_by": bound_by,
     }
     log(f"{kernel} " + json.dumps(row))
+    if rows == 64 * 257 and dtype == torch.bfloat16:
+        row["_trace"] = (run, kernel)
     return row
 
 
@@ -534,6 +545,8 @@ def k1_int8_case(dc, corpus, valid, nq, k=10) -> dict:
         "bound_by": bound_by,
     }
     log("K1 int8 " + json.dumps(row))
+    if nq == 1:
+        row["_trace"] = (lambda: tile_max_int8(*args), "K1_int8")
     return row
 
 
@@ -564,8 +577,8 @@ def phase_k5() -> list:
     """K5 at scripts/exp_int4_kernel.py's shapes: 8 bf16 queries of 512 over
     2^20 rows packed (N, 256), a tombstone every 97th row, tile_n 512, 1024
     and 2048; atol 1e-5 against the plain version (exact products, fp32
-    sums in another order). Timed at tile 2048 only, the kernels line's
-    shape: the script times every tile again in phase 10."""
+    sums in another order). Timed at every tile; tile 2048 is the kernels
+    line's shape."""
     import torch
 
     from imatch_tpu_torch.ops.kernels.int4_topk import int4_tile_max, int4_tile_max_plain, pack_int4
@@ -583,6 +596,12 @@ def phase_k5() -> list:
         got = int4_tile_max(qbf, packed, side, tile_n)
         torch.cuda.synchronize()
         err = float((got - int4_tile_max_plain(qbf, packed, side, tile_n)).abs().max())
+        # the bytes the function reads: the codes and side rows 0 (scale)
+        # and 1 (validity); rows 2-7 of the side array are padding neither
+        # the kernel nor the plain version touches
+        n_bytes = n * (d // 2) + 2 * n * 2 + q * d * 2 + q * (n // tile_n) * 4
+        bms, bound_by = bound_ms(n_bytes, 2 * q * n * d, "bfloat16")
+        call = lambda tile_n=tile_n: int4_tile_max(qbf, packed, side, tile_n)  # noqa: E731
         row = {
             "n": n,
             "d": d,
@@ -590,25 +609,16 @@ def phase_k5() -> list:
             "tile_n": tile_n,
             "max_abs_err": err,
             "ok": err <= 1e-5 and bool(torch.isfinite(got).all()),
+            "kernel_ms": time_ms(call),
+            "plain_ms": time_ms(lambda: int4_tile_max_plain(qbf, packed, side, tile_n), iters=3),
+            "library_ms": None,
+            "library_note": "no PyTorch call multiplies int4 codes (torch has no int4 matmul)",
+            "bound_ms": bms,
+            "bound_by": bound_by,
         }
-        if tile_n == 2048:
-            # the bytes the function reads: the codes and side rows 0
-            # (scale) and 1 (validity); rows 2-7 of the side array are
-            # padding neither the kernel nor the plain version touches
-            n_bytes = n * (d // 2) + 2 * n * 2 + q * d * 2 + q * (n // tile_n) * 4
-            bms, bound_by = bound_ms(n_bytes, 2 * q * n * d, "bfloat16")
-            row.update(
-                kernel_ms=time_ms(lambda: int4_tile_max(qbf, packed, side, tile_n)),
-                plain_ms=time_ms(lambda: int4_tile_max_plain(qbf, packed, side, tile_n), iters=3),
-                library_ms=None,
-                library_note="no PyTorch call multiplies int4 codes (torch has no int4 matmul)",
-                bound_ms=bms,
-                bound_by=bound_by,
-            )
         log("K5 " + json.dumps(row))
+        row["_trace"] = (call, "K5")
         rows.append(row)
-    del packed, side
-    torch.cuda.empty_cache()
     if not all(r["ok"] for r in rows):
         raise AssertionError("K5 disagrees with its plain version")
     return rows
@@ -651,6 +661,8 @@ def phase_k6() -> list:
                     bound_by=bound_by,
                 )
             log("K6 " + json.dumps(row))
+            if "bound_ms" in row:
+                row["_trace"] = (lambda qs=qs, st=st, t=tile_n: tile_max_t(qs, st, t), "K6")
             rows.append(row)
         del st
         torch.cuda.empty_cache()
@@ -958,63 +970,25 @@ def breakdown(state, png: bytes, device) -> None:
 
 
 def device_busy(fn, wall_ms: float, iters: int = 5, top: int = 0) -> dict:
-    """Device time of one call from a torch.profiler trace: the sum of
-    its kernel and copy intervals, the port's kernels by name, and the
-    idle share against ``wall_ms``, the same call's host-clock time
-    measured without the profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Device time of one call from a torch.profiler trace (kernel_ab.py's
+    ``trace``): the sum of its kernel and copy intervals, the port's
+    kernels by name, and the idle share against ``wall_ms``, the same
+    call's host-clock time measured without the profiler."""
+    from imatch_tpu_torch.scripts.kernel_ab import trace
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy = 0.0
-    by_kernel = {k: 0.0 for k in ("K1", "K1_int8", "K2", "K3", "K4", "K5", "K6")}
-    by_name = {}
-    n_kernels = 0
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = evt.time_range.elapsed_us()
-        busy += us
-        n_kernels += 1
-        key = _kernel_key(evt.name)
-        if key:
-            by_kernel[key] += us
-        by_name[evt.name[:70]] = by_name.get(evt.name[:70], 0.0) + us
-    busy_ms = busy / iters / 1e3
+    t = trace(fn, iters)
     out = {
         "wall_ms": wall_ms,
-        "device_busy_ms": busy_ms,
-        "idle_share": 1.0 - busy_ms / wall_ms,
-        "device_ops_per_call": n_kernels / iters,
-        **{f"{k}_ms": v / iters / 1e3 for k, v in by_kernel.items()},
+        "device_busy_ms": t["busy_ms"],
+        "idle_share": 1.0 - t["busy_ms"] / wall_ms,
+        "device_ops_per_call": t["ops"],
+        "trace_guarded": t["guarded"],
+        **{f"{k}_ms": t["by_key"].get(k, 0.0) for k in ("K1", "K1_int8", "K2", "K3", "K4", "K5", "K6")},
     }
     if top:  # the device's time by kernel name, largest first
-        ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-        out["top_kernels_ms"] = [[name, us / iters / 1e3] for name, us in ranked]
+        ranked = sorted(t["by_name"].items(), key=lambda kv: -kv[1])[:top]
+        out["top_kernels_ms"] = [[name[:70], ms] for name, ms in ranked]
     return out
-
-
-def _kernel_key(name: str):
-    """The port's kernel a profiler event belongs to, by its name."""
-    if "int4_tile_max_kernel" in name:
-        return "K5"
-    if "tile_max_t_kernel" in name:
-        return "K6"
-    if "tile_max_int8_kernel" in name:
-        return "K1_int8"
-    if "tile_max_kernel" in name or "tile_max_mma_kernel" in name:
-        return "K1"
-    if "flash_fwd_kernel" in name or "flash_fwd_mma_kernel" in name:
-        return "K2"
-    if "quant_rows_kernel" in name:  # template <T, NV, LN>: LN true is K4
-        return "K4" if "true>" in name else "K3"
-    return None
 
 
 # -- phase 7 -----------------------------------------------------------------
@@ -1675,8 +1649,11 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
             "library_ms": row["library_ms"],
             "shape": shape,
         }
-        if key == "K2":  # the card's time alone: at B = 1 a call is host-bound
-            entry["device_ms"] = row["device_ms"]
+        # the card's time alone: events of back-to-back calls time the host
+        # where it launches more slowly than the card runs (K2 at B = 1)
+        entry["device_ms"] = row["device_ms"]
+        entry["device_pct_of_bound"] = row["device_pct_of_bound"]
+        if key == "K2":
             entry["library_device_ms"] = row["library_device_ms"]
         if key in ("K3", "K4"):
             entry["library_note"] = "no single PyTorch call computes a per-row int8 quantize"
@@ -1718,7 +1695,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     script_launches, script_lines = phase_scripts()
     launches.update(script_launches)
-    phase_k2_device(k2_rows)
+    traced = [r for rows in (k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows) for r in rows if "_trace" in r]
+    phase_device(k2_rows, traced)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     for line in script_lines:
         print(line)

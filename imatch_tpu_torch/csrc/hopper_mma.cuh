@@ -1,4 +1,5 @@
-// Helpers shared by the tensor-core kernels (K1 bf16 at Q >= 2, K2 bf16):
+// Helpers shared by the tensor-core kernels (K1 bf16 at Q >= 2, K2 bf16,
+// K5):
 // PTX wrappers for mma.sync, ldmatrix and cp.async on sm_90a, and the
 // once-per-device opt-in to dynamic shared memory.
 //

@@ -28,7 +28,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -130,8 +133,8 @@ cudaError_t launch(const __nv_bfloat16* queries, const __nv_bfloat16* corpus_t, 
   const int tiles_per_block = tile_n < SPAN ? SPAN / tile_n : 1;
   const int passes = tile_n < SPAN ? 1 : tile_n / SPAN;
   const size_t smem = sizeof(float) * size_t(QC) * D;
-  cudaError_t err = cudaFuncSetAttribute(tile_max_t_kernel<QC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  static std::atomic<int> granted[hopper::kMaxDevices];
+  cudaError_t err = hopper::allow_smem(tile_max_t_kernel<QC>, int(smem), granted);
   if (err != cudaSuccess) return err;
   const dim3 grid((n_tiles + tiles_per_block - 1) / tiles_per_block, (Q + QC - 1) / QC);
   tile_max_t_kernel<QC><<<grid, NTHREADS, smem, stream>>>(queries, corpus_t, out, Q, D, N, tile_n,

@@ -74,6 +74,35 @@ def test_plain_matches_pallas_interpret(script, tile_n):
     np.testing.assert_array_equal(got, int4_tile_max_plain(qbf, p, s, tile_n).numpy())
 
 
+@pytest.mark.parametrize(
+    "nq,d,n,tile_n",
+    [
+        (3, 512, 4096, 512),  # Q < 8: the card kernel's zero query columns
+        (8, 96, 2048, 512),  # H = 48: chunks past the row's 64-byte multiples
+        (3, 96, 1024, 16),  # both, at one m-tile a tile
+    ],
+)
+def test_plain_matches_pallas_interpret_other_shapes(script, monkeypatch, nq, d, n, tile_n):
+    """The shapes the card kernel's predicates cover, against the script's
+    kernel with its module constants (query rows, feature width) set to
+    them; interpret mode takes any block shape."""
+    monkeypatch.setattr(script, "QP", nq)
+    monkeypatch.setattr(script, "D", d)
+    monkeypatch.setattr(script, "HALF", d // 2)
+    c, valid, _ = _data(n=n, d=d, seed=d + nq)
+    rng = np.random.default_rng(nq)
+    q = rng.standard_normal((nq, d)).astype(np.float32)
+    qbf = torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True)).bfloat16()
+    packed, side, _, _ = script.pack_int4(jnp.asarray(c), jnp.asarray(valid))
+    jq = jnp.asarray(qbf.float().numpy()).astype(jnp.bfloat16)
+    want = np.asarray(script.int4_tile_max(jq, packed, side, tile_n=tile_n, interpret=True))
+    p, s, _, _ = pack_int4(torch.from_numpy(c), torch.from_numpy(valid))
+    np.testing.assert_array_equal(p.numpy(), np.asarray(packed))
+    got = int4_tile_max(qbf, p, s, tile_n).numpy()  # CPU tensors: the plain version
+    assert got.shape == want.shape == (nq, n // tile_n)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
 def test_tombstoned_tile_is_neg_inf():
     c, valid, qbf = _data(n=2048)
     valid[512:1024] = False

@@ -246,7 +246,16 @@ def test_int8_tiers_match_brute_force_on_card(cuda):
     assert (hi == bi[:, :10].cpu().numpy()).all()
 
 
-@pytest.mark.parametrize("n,d,nq,tile_n", [(4096, 512, 8, 512), (4096, 96, 3, 512), (1 << 20, 512, 8, 2048)])
+@pytest.mark.parametrize(
+    "n,d,nq,tile_n",
+    [
+        (4096, 512, 8, 512),
+        (4096, 96, 3, 512),
+        (4096, 192, 5, 512),  # two chunk steps a lane, the last two chunks past the row
+        (4096, 768, 8, 512),  # past D = 512: each row in two segments
+        (1 << 20, 512, 8, 2048),
+    ],
+)
 def test_int4_tile_max_matches_plain(cuda, n, d, nq, tile_n):
     corpus, _ = _unit_corpus(n, d, cuda, seed=5)
     valid = torch.arange(n, device=cuda) % 97 != 0
@@ -259,6 +268,48 @@ def test_int4_tile_max_matches_plain(cuda, n, d, nq, tile_n):
     torch.cuda.synchronize()
     assert int4_tile_max.launches == before + 1
     torch.testing.assert_close(got, int4_tile_max_plain(qbf, packed, side, tile_n), rtol=0, atol=1e-5)
+
+
+def _int4_queries(nq, d, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((nq, d), generator=g, device=device)
+    return (q / q.norm(dim=1, keepdim=True)).bfloat16()
+
+
+@pytest.mark.parametrize("tile_n", [16, 512, 2048])
+@pytest.mark.parametrize("h", [48, 256])
+@pytest.mark.parametrize("nq", [1, 3, 8, 9, 17])
+def test_int4_tile_max_tensor_cores(cuda, nq, h, tile_n):
+    """Zero query columns (Q < 8, the last chunk of 9 and 17), chunks past
+    the row's 64-byte multiples (H = 48) and one m-tile a tile (16)."""
+    n = 8192
+    corpus, valid = _unit_corpus(n, 2 * h, cuda, seed=nq + h)
+    packed, side, _, _ = pack_int4(corpus, valid)
+    qbf = _int4_queries(nq, 2 * h, cuda, seed=tile_n)
+    before = int4_tile_max.launches
+    got = int4_tile_max(qbf, packed, side, tile_n)
+    torch.cuda.synchronize()
+    assert int4_tile_max.launches == before + 1
+    torch.testing.assert_close(got, int4_tile_max_plain(qbf, packed, side, tile_n), rtol=0, atol=1e-5)
+
+
+def test_int4_tile_max_extreme_codes_and_tombstoned_tile(cuda):
+    """Rows of all +-7 codes (the largest sums), and tiles with no valid
+    row (-3e38)."""
+    n, d = 8192, 512
+    g = torch.Generator(device=cuda).manual_seed(11)
+    corpus = torch.where(torch.rand((n, d), generator=g, device=cuda) < 0.5, -0.05, 0.05)
+    valid = torch.ones((n,), dtype=torch.bool, device=cuda)
+    valid[2048:4096] = False
+    packed, side, codes, _ = pack_int4(corpus, valid)
+    assert bool((codes.abs() == 7).all())
+    qbf = _int4_queries(8, d, cuda, seed=12)
+    for tile_n in (512, 2048):
+        got = int4_tile_max(qbf, packed, side, tile_n)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, int4_tile_max_plain(qbf, packed, side, tile_n), rtol=0, atol=1e-5)
+        dead = slice(2048 // tile_n, 4096 // tile_n)
+        assert bool((got[:, dead] == NEG_INF).all()) and bool((got > NEG_INF).sum() == got.numel() - got[:, dead].numel())
 
 
 @pytest.mark.parametrize("n", [16384, 1 << 20])
