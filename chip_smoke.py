@@ -31,8 +31,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    corpus.
 6. The first slice end to end: the port's app at longclip-l14-248 (random
    weights from a seed) served over HTTP by the port's server, holding a
-   2^20-row store; uploads, a duplicate, and text, image and multimodal
-   searches, with the K1 and K2 launch counts read around them.
+   2^20-row store that reaches it through the restart path (saved by a
+   store that keeps no journal, then loaded by the app's state): a first
+   search that builds the device index, 16 uploads that patch it, a
+   duplicate, and text, image and multimodal searches, with the K1 and K2
+   launch counts read around them. Then, on the store that wrote the
+   snapshot: the first query after an add, patched and rebuilt
+   (IMATCH_INCREMENTAL=0), with an add from a second thread during the
+   rebuild; 64 deletes and 64 updates, patched, whose K1 tile maxima must
+   equal a fresh build's bit for bit; two restarts of the app's state (a
+   journal replay, a fresh snapshot), each answering as before; and PUT
+   /api/metadata and POST /api/reset, each persisting across a restart.
 7. The second slice end to end: the app at longclip-l14-248 with the W8A8
    image tower (IMATCH_EMBED_QUANT=int8) ingesting a folder through
    /api/upload-folder (a fused chunk of 42 frames padded to 64, a host
@@ -41,11 +50,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    the fused chunk's stages timed (W8A8 beside the bf16 tower at B = 64).
 8. The third slice end to end: the app at longclip-l14-248 over a store of
    2^20 rows, once with IMATCH_SCORE_DTYPE=int8 and once with
-   IMATCH_INDEX_ENGINE=tilemax-host; text, image and multimodal searches
-   over HTTP whose ids must equal a full fp32 brute force and the bf16
-   engine on the same rows, with the K1 and K1-int8 launch counts read
-   around them; then an IMATCH_INDEX_ENGINE=auto store whose device budget
-   makes its build escalate to tilemax-host.
+   IMATCH_INDEX_ENGINE=tilemax-host; uploads that patch the built index,
+   then text, image and multimodal searches over HTTP whose ids must equal
+   a full fp32 brute force and the bf16 engine on the same rows, with the
+   K1 and K1-int8 launch counts read around them; 64 deletes and 64
+   updates (patched, or on the host tier one rebuild for the updates)
+   checked as in phase 6 with K1-int8; then an IMATCH_INDEX_ENGINE=auto
+   store whose device budget makes its build escalate to tilemax-host.
 9. A cut-depth vit-b32 tower on the card against the same weights on the
    CPU, and the W8A8 longclip tower against the fp32 tower on the card.
 10. The two experiment entry points, python -m imatch_tpu_torch.scripts.
@@ -678,6 +689,8 @@ N_UPLOADS = 16
 STORE_ROWS = 1 << 20  # rows in the store once the uploads are in
 TEXT_QUERY = "a red drill on a wooden table"
 MULTIMODAL_QUERY = "blue sky over the sea"
+BUILD_QUERY = "shelves in a storage room"
+WARM_QUERY = "a bicycle leaning on a wall"
 
 
 def synthetic_png(seed: int, h: int = 240, w: int = 320) -> bytes:
@@ -730,7 +743,7 @@ class HttpClient:
             )
         data = None
         headers = {}
-        if method == "POST":
+        if method in ("POST", "PUT"):
             data = b"".join(parts) + f"--{boundary}--\r\n".encode()
             headers["Content-Type"] = f"multipart/form-data; boundary={boundary}"
         req = urllib.request.Request(self.base + path, data=data, headers=headers, method=method)
@@ -795,14 +808,102 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+@contextlib.contextmanager
+def recorded_queries(store):
+    """``store.query`` wrapped for a ``with`` block: the fp32 query vectors
+    the app hands the store are appended to the yielded list."""
+    import numpy as np
+    import torch
+
+    seen = []
+    query = store.query
+
+    def recording(query_embeddings, *args, **kw):
+        q = query_embeddings
+        seen.append(q.float() if isinstance(q, torch.Tensor) else torch.as_tensor(np.asarray(q, np.float32)))
+        return query(query_embeddings, *args, **kw)
+
+    store.query = recording
+    try:
+        yield seen
+    finally:
+        del store.query  # the class's method again
+
+
+def k1_calls(state, q32):
+    """Zero-argument calls of K1 (K1-int8 for int8 codes) and of its plain
+    version, on fp32 queries against a store's prepared state."""
+    import torch
+
+    from imatch_tpu_torch.index.search import _int8_queries
+    from imatch_tpu_torch.ops.kernels.topk import tile_max, tile_max_int8, tile_max_int8_plain, tile_max_plain
+
+    q32 = q32.to(device=state.scoring.device, dtype=torch.float32)
+    if state.scoring.dtype == torch.int8:
+        qi, qscale = _int8_queries(q32, state.scoring.shape[1])
+        args = (qi, state.scoring, qscale, state.scale, state.valid, state.tile_n)
+        return (lambda: tile_max_int8(*args)), (lambda: tile_max_int8_plain(*args))
+    qs = torch.zeros((q32.shape[0], state.scoring.shape[1]), dtype=state.scoring.dtype, device=q32.device)
+    qs[:, : q32.shape[1]] = q32
+    args = (qs, state.scoring, state.valid, state.tile_n)
+    return (lambda: tile_max(*args)), (lambda: tile_max_plain(*args))
+
+
+def check_patched(store, queries, device, k=10) -> dict:
+    """A patched store against a fresh build of its own host buffers (the
+    same slots, so tile for tile): K1's or K1-int8's tile maxima on the
+    patched state equal those on the fresh build bit for bit, and the plain
+    version's within K1's bar (1e-5; int8: bit for bit); the store's answers
+    equal the fp32 brute force over its rows. On the card the kernel is
+    timed on both states (CUDA events, patched, fresh, patched)."""
+    import torch
+
+    eng, patched = store._device_corpus
+    fresh = store._build_device(store._emb.copy(), store._alive.copy())[1]
+    k1_patched, plain = k1_calls(patched, queries)
+    k1_fresh, _ = k1_calls(fresh, queries)
+    got, want, ref = k1_patched(), k1_fresh(), plain()
+    err = float(torch.where(got == ref, 0.0, (got - ref).abs()).max())
+    out = {
+        "engine": eng,
+        "k1_equals_fresh_build": bool(torch.equal(got, want)),
+        "k1_plain_max_abs_err": err,
+    }
+    if patched.scoring.is_cuda:
+        out["k1_ms_patched_fresh_patched"] = [time_ms(f, iters=50) for f in (k1_patched, k1_fresh, k1_patched)]
+    del fresh, k1_fresh
+    brute, _ = _references(store, queries, device, k)
+    out["ids_equal_brute_force"] = store.query(queries, n_results=k)["ids"] == brute
+    bar = 0.0 if patched.scoring.dtype == torch.int8 else 1e-5
+    out["ok"] = out["k1_equals_fresh_build"] and err <= bar and out["ids_equal_brute_force"]
+    return out
+
+
+def _disk_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _unit_rows(n: int, dim: int, seed: int, device):
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, dim), generator=g, device=device)
+    return (x / x.norm(dim=1, keepdim=True)).cpu().numpy()
+
+
 def phase_slice(device="cuda", config=SLICE_CONFIG, store_rows=STORE_ROWS):
-    """The app at longclip-l14-248 over HTTP; returns the launch counts and
-    the embedder. (A small config on the CPU rehearses the same control
-    flow.)"""
+    """The app at longclip-l14-248 over HTTP, its store prefilled through
+    the restart path (a saved snapshot that the app loads); uploads that
+    patch the device index, a rebuild beside them with a writer during it,
+    patches at full size against a fresh build, two restarts, and the
+    metadata and reset routes. Returns the launch counts of the HTTP
+    requests and the embedder. (A small config on the CPU rehearses the
+    same control flow.)"""
     import shutil
 
     import torch
 
+    from imatch_tpu_torch.index.store import VectorStore
     from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
     from imatch_tpu_torch.ops.kernels.topk import tile_max
     from imatch_tpu_torch.pipeline.embedder import ClipEmbedder
@@ -810,35 +911,53 @@ def phase_slice(device="cuda", config=SLICE_CONFIG, store_rows=STORE_ROWS):
     from imatch_tpu_torch.serving.app import create_app
 
     root = os.path.join("build", "chip_smoke_app")
+    data_dir = os.path.join(root, "index_data")
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
     embedder = ClipEmbedder(config, device=device)
-    state = AppState(root=root, embedder=embedder, device=device)
     cfg = embedder.cfg
     # A store at a real size: earlier images as random unit rows, so the
-    # searches below score 2^20 rows through K1.
+    # searches below score 2^20 rows through K1. It reaches the app through
+    # the restart path: saved by a store that keeps no journal (a journal
+    # of 2^20 fsynced base64 lines would be 4.3 GB), then loaded.
     n_pre = store_rows - N_UPLOADS
-    g = torch.Generator(device=device).manual_seed(1)
-    pre = torch.randn((n_pre, cfg.projection_dim), generator=g, device=device)
-    pre = (pre / pre.norm(dim=1, keepdim=True)).cpu().numpy()
-    state.store.add(
+    seed_store = VectorStore(device=device)
+    seed_store.add(
         ids=[f"pre_{i}" for i in range(n_pre)],
-        embeddings=pre,
+        embeddings=_unit_rows(n_pre, cfg.projection_dim, 1, device),
         metadatas=[{"id": f"pre_{i}"} for i in range(n_pre)],
     )
-    del pre
+    persist = {}
+    t = time.perf_counter()
+    seed_store.save(data_dir)
+    persist["save_s"] = time.perf_counter() - t
+    persist["bytes_on_disk"] = _disk_bytes(data_dir)
+    t = time.perf_counter()
+    state = AppState(root=root, embedder=embedder, device=device)
+    persist["load_s"] = time.perf_counter() - t
+    persist["last_load"] = state.store.stats()["last_load"]
+    persist["count"] = state.store.count()
+    assert persist["count"] == n_pre, persist
     app = create_app(state)
-    log(f"slice: {cfg.name} app with a {n_pre}-row store ready in {time.perf_counter() - t0:.1f} s")
+    log(f"slice: {cfg.name} app loaded a {n_pre}-row store in {time.perf_counter() - t0:.1f} s")
+    log("slice persistence: " + json.dumps(persist))
 
     pngs = [synthetic_png(i) for i in range(N_UPLOADS)]
     port = _free_port()
-    with ServerThread(app, port):
+    with ServerThread(app, port), recorded_queries(state.store) as seen:
         http = HttpClient(port)
         _sync(device)
         tile_max.launches = 0
         flash_mha.launches = 0
         times = {}
         ids = []
+        # the first search builds the device index over the capacity buffer;
+        # its own text, since the embedder caches a text's embedding
+        status, body, times["first_search_ms"] = http.request(
+            "POST", "/api/search/text", [("query", BUILD_QUERY), ("limit", "5")]
+        )
+        assert status == 200 and len(body["results"]) == 5, body
+        first_build = state.store.stats()["last_build"]
         for i, png in enumerate(pngs):
             status, body, ms = http.request(
                 "POST", "/api/upload", [("description", f"synthetic {i}")], [("file", f"s{i}.png", png)]
@@ -851,11 +970,17 @@ def phase_slice(device="cuda", config=SLICE_CONFIG, store_rows=STORE_ROWS):
             "POST", "/api/upload", files=[("file", "again.png", pngs[0])]
         )
         assert status == 409 and body["metadata"]["id"] == ids[0], (status, body)
-        status, body, times["text_ms"] = http.request(
+        # the uploads patched the index: this search reads it as it stands
+        status, body, times["first_search_after_upload_ms"] = http.request(
             "POST", "/api/search/text", [("query", TEXT_QUERY), ("limit", "5")]
         )
         assert status == 200 and len(body["results"]) == 5, body
         text_top = [r["id"] for r in body["results"]]
+        # a warm search of another new text, to hold the reading above against
+        status, body, times["warm_text_search_ms"] = http.request(
+            "POST", "/api/search/text", [("query", WARM_QUERY), ("limit", "5")]
+        )
+        assert status == 200 and len(body["results"]) == 5, body
         status, body, times["image_ms"] = http.request(
             "POST", "/api/search/image", [("limit", "5")], [("file", "q.png", pngs[3])]
         )
@@ -877,29 +1002,38 @@ def phase_slice(device="cuda", config=SLICE_CONFIG, store_rows=STORE_ROWS):
         launches = {"K1": tile_max.launches, "K2": flash_mha.launches}
         status, health, _ = http.request("GET", "/api/health")
         assert status == 200 and health["images"] == store_rows, health
+    stats = state.store.stats()
+    patches = {k: stats[k] for k in ("patched_mutations", "rebuild_mutations", "journal_ops")}
+    # seen: the first search's text, the two texts, the image, the multimodal
+    queries = torch.cat([seen[i].to(device) for i in (1, 3, 4)])
     breakdown(state, pngs[7], device)
-    shutil.rmtree(root, ignore_errors=True)
 
     image_calls = N_UPLOADS + 2  # each upload, the image search, the multimodal search
-    text_calls = 2  # the text search, the multimodal search (another text)
+    text_calls = 4  # the three text searches, the multimodal search (four texts)
     expected = {
-        "K1": 3,  # one phase-1 launch a search
+        "K1": 5,  # one phase-1 launch a search
         "K2": image_calls * cfg.vision.num_layers + text_calls * cfg.text.num_layers,
     }
+    if torch.device(device).type != "cuda":  # the CPU runs the plain versions
+        expected = {"K1": 0, "K2": 0}
     log(
         "slice: "
         + json.dumps(
             {
                 "config": cfg.name,
                 "store_rows": store_rows,
+                "first_search_ms": times["first_search_ms"],
+                "first_build": first_build,
                 "upload_ms": times["upload_ms"],
                 "duplicate_ms": times["duplicate_ms"],
-                "text_ms": times["text_ms"],
+                "first_search_after_upload_ms": times["first_search_after_upload_ms"],
+                "warm_text_search_ms": times["warm_text_search_ms"],
                 "image_ms": times["image_ms"],
                 "multimodal_ms": times["multimodal_ms"],
                 "self_match_similarity": self_score,
                 "text_top5": text_top,
                 "multimodal_top5": multimodal_top,
+                **patches,
                 "launches": launches,
                 "expected_launches": expected,
             }
@@ -907,7 +1041,162 @@ def phase_slice(device="cuda", config=SLICE_CONFIG, store_rows=STORE_ROWS):
     )
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != what the requests imply {expected}")
+    if patches != {"patched_mutations": N_UPLOADS, "rebuild_mutations": 0, "journal_ops": N_UPLOADS}:
+        raise AssertionError(f"the uploads did not patch the device index: {patches}")
+
+    rebuild_and_patch(seed_store, queries, cfg.projection_dim, device)
+    want = state.store.query(queries, n_results=10)["ids"]
+    del seed_store, state, app
+    gc.collect()
+    restarts(root, embedder, queries, want, ids, device)
+    shutil.rmtree(root, ignore_errors=True)
     return launches, embedder
+
+
+def rebuild_and_patch(store, queries, dim, device) -> None:
+    """On a store of the app's content before the uploads (the one that
+    wrote the snapshot): the first query after one add, patched and then
+    rebuilt (IMATCH_INCREMENTAL=0), with an add from a second thread during
+    that rebuild; then 64 deletes and 64 updates, patched, against a fresh
+    build and against a fresh store over ``get(include=embeddings)``."""
+    import torch
+
+    from imatch_tpu_torch.index.store import VectorStore
+
+    q = queries[:1]
+    extra = _unit_rows(3, dim, 5, device)
+    out = {}
+    t = time.perf_counter()
+    store.query(q, n_results=10)
+    out["build_query_ms"] = (time.perf_counter() - t) * 1e3
+    store.add(["extra_0"], extra[:1])
+    t = time.perf_counter()
+    store.query(q, n_results=10)
+    out["first_query_after_add_patched_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    store._emb.copy(), store._alive.copy()
+    out["copy_under_lock_ms"] = (time.perf_counter() - t) * 1e3  # what a writer can wait for
+
+    building, marks = threading.Event(), {}
+    build = store._build_device
+
+    def marked_build(*args):
+        building.set()
+        dc = build(*args)
+        marks["build_end"] = time.perf_counter()
+        return dc
+
+    store._build_device = marked_build
+    got = []
+    with environment(IMATCH_INCREMENTAL="0"):
+        store.add(["extra_1"], extra[1:2])  # drops the index: the next query rebuilds
+        t = time.perf_counter()
+        reader = threading.Thread(target=lambda: got.append(store.query(q, n_results=10)))
+        reader.start()
+        assert building.wait(600), "the rebuild did not start"
+        t_w = time.perf_counter()
+        store.add(["extra_2"], extra[2:3])  # a writer during the rebuild
+        t_w_end = time.perf_counter()
+        reader.join(600)
+        t_end = time.perf_counter()
+    del store._build_device
+    assert not reader.is_alive() and got, "the rebuilding query did not finish"
+    out["first_query_after_add_rebuilt_ms"] = (t_end - t) * 1e3
+    out["rebuild_s"] = store.stats()["last_build"]["seconds"]
+    out["writer_during_rebuild_ms"] = (t_w_end - t_w) * 1e3
+    out["writer_returned_before_build_end_ms"] = (marks["build_end"] - t_w_end) * 1e3
+    log("slice rebuild: " + json.dumps(out))
+    if t_w_end >= marks["build_end"]:
+        raise AssertionError(f"the writer waited for the rebuild: {out}")
+
+    # patches at full size: the index is rebuilt, then 64 deletes and 64
+    # updates patch it
+    store.query(q, n_results=10)
+    ids = store.get(include=[])["ids"]
+    store.delete(ids[:64])
+    store.update(ids[100:164], embeddings=_unit_rows(64, dim, 6, device))
+    stats = store.stats()
+    row = check_patched(store, queries, device)
+    row.update({k: stats[k] for k in ("patched_mutations", "rebuild_mutations", "live")})
+    fresh = VectorStore(device=device)
+    got = store.get(include=["embeddings"])
+    fresh.add(got["ids"], got["embeddings"])
+    del got
+    row["ids_equal_fresh_store"] = store.query(queries, n_results=10)["ids"] == fresh.query(queries, n_results=10)["ids"]
+    del fresh
+    log("slice patches: " + json.dumps(row))
+    # the patched add, the two deletes and updates; the kill-switch adds rebuilt
+    if not (row["ok"] and row["ids_equal_fresh_store"]) or (stats["patched_mutations"], stats["rebuild_mutations"]) != (3, 1):
+        raise AssertionError(f"the patched store disagrees with a fresh build: {row}")
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def restarts(root, embedder, queries, want, ids, device) -> None:
+    """Restart twice (a journal replay, then a fresh snapshot with no
+    journal), each answering ``queries`` with the ids ``want`` as before;
+    then PUT /api/metadata persists across a restart and POST /api/reset
+    leaves an empty store after one."""
+    from imatch_tpu_torch.pipeline.state import AppState
+    from imatch_tpu_torch.serving.app import create_app
+
+    out = {}
+    t = time.perf_counter()
+    state = AppState(root=root, embedder=embedder, device=device)
+    out["restart_s"] = time.perf_counter() - t
+    out["last_load"] = state.store.stats()["last_load"]
+    out["replay_s"] = out["last_load"]["replay_s"]
+    out["journal_ops"] = state.store.stats()["journal_ops"]
+    out["answers_equal_after_replay"] = state.store.query(queries, n_results=10)["ids"] == want
+    t = time.perf_counter()
+    state.snapshot(force=True)
+    out["snapshot_s"] = time.perf_counter() - t
+    out["journal_after_snapshot"] = os.path.exists(os.path.join(state.data_dir, "journal.jsonl"))
+    del state
+    gc.collect()
+    t = time.perf_counter()
+    state = AppState(root=root, embedder=embedder, device=device)
+    out["restart_from_snapshot_s"] = time.perf_counter() - t
+    out["last_load_from_snapshot"] = state.store.stats()["last_load"]
+    out["answers_equal_after_snapshot"] = state.store.query(queries, n_results=10)["ids"] == want
+    log("slice restarts: " + json.dumps(out))
+    if not (
+        out["answers_equal_after_replay"]
+        and out["answers_equal_after_snapshot"]
+        and out["journal_ops"] == N_UPLOADS
+        and out["last_load"]["replayed_ops"] == N_UPLOADS
+        and not out["journal_after_snapshot"]
+        and out["last_load_from_snapshot"]["replayed_ops"] == 0
+    ):
+        raise AssertionError(f"a restart lost state: {out}")
+
+    routes = {}
+    with ServerThread(create_app(state), port := _free_port()):
+        http = HttpClient(port)
+        status, body, routes["put_metadata_ms"] = http.request(
+            "PUT", f"/api/metadata/{ids[0]}", [("description", "edited on the card")]
+        )
+        assert status == 200 and body["metadata"]["description"] == "edited on the card", body
+        assert http.request("PUT", "/api/metadata/img_nope", [("description", "x")])[0] == 404
+        assert http.request("PUT", f"/api/metadata/{ids[0]}", [("custom_metadata", "x")])[0] == 422
+    del state
+    gc.collect()
+    state = AppState(root=root, embedder=embedder, device=device)
+    routes["metadata_after_restart"] = state.image_metadata[ids[0]]["description"]
+    assert routes["metadata_after_restart"] == "edited on the card", routes
+    with ServerThread(create_app(state), port := _free_port()):
+        http = HttpClient(port)
+        status, body, routes["reset_ms"] = http.request("POST", "/api/reset")
+        assert status == 200 and body == {"success": True}, body
+        status, body, _ = http.request("GET", "/api/images")
+        assert status == 200 and body == {"images": []}, body
+    del state
+    gc.collect()
+    state = AppState(root=root, embedder=embedder, device=device)
+    routes["count_after_reset_and_restart"] = state.store.count()
+    log("slice routes: " + json.dumps(routes))
+    if routes["count_after_reset_and_restart"] != 0:
+        raise AssertionError(f"the reset did not persist: {routes}")
 
 
 def _host_ms(fn, device, iters: int = 10) -> float:
@@ -1110,7 +1399,7 @@ def phase_w8a8(device="cuda", config=SLICE_CONFIG):
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
     embedder = ClipEmbedder(config, device=device, quant="int8")
-    state = AppState(root=root, embedder=embedder, device=device)
+    state = AppState(root=root, embedder=embedder, device=device, autoload=False)
     app = create_app(state)
     cfg = embedder.cfg
     log(f"w8a8: {cfg.name} app with the int8 image tower ready in {time.perf_counter() - t0:.1f} s")
@@ -1283,7 +1572,6 @@ def phase_tiers(embedder, device="cuda", store_rows=STORE_ROWS) -> dict:
     flow.)"""
     import shutil
 
-    import numpy as np
     import torch
 
     from imatch_tpu_torch.index.store import VectorStore
@@ -1293,9 +1581,7 @@ def phase_tiers(embedder, device="cuda", store_rows=STORE_ROWS) -> dict:
 
     cfg = embedder.cfg
     n_pre = store_rows - N_TIER_UPLOADS
-    g = torch.Generator(device=device).manual_seed(3)
-    pre = torch.randn((n_pre, cfg.projection_dim), generator=g, device=device)
-    pre = (pre / pre.norm(dim=1, keepdim=True)).cpu().numpy()
+    pre = _unit_rows(n_pre, cfg.projection_dim, 3, device)
     pre_ids = [f"pre_{i}" for i in range(n_pre)]
     pre_meta = [{"id": i} for i in pre_ids]
     pngs = [synthetic_png(200 + i) for i in range(N_TIER_UPLOADS)]
@@ -1305,21 +1591,14 @@ def phase_tiers(embedder, device="cuda", store_rows=STORE_ROWS) -> dict:
         root = os.path.join("build", f"chip_smoke_{tier}")
         shutil.rmtree(root, ignore_errors=True)
         with environment(**env):
-            state = AppState(root=root, embedder=embedder, device=device)
+            state = AppState(root=root, embedder=embedder, device=device, autoload=False)
         store = state.store
         assert store.engine == engine, (store.engine, engine)
         store.add(ids=pre_ids, embeddings=pre, metadatas=pre_meta)
-        seen = []  # the query vectors the app hands the store
-        query = store.query
-
-        def recording(query_embeddings, *args, _query=query, _seen=seen, **kw):
-            q = query_embeddings
-            _seen.append(q.float() if isinstance(q, torch.Tensor) else torch.as_tensor(np.asarray(q, np.float32)))
-            return _query(query_embeddings, *args, **kw)
-
-        store.query = recording
+        store.query(pre[:1], n_results=10)  # the build: the uploads then patch it
+        first_build = store.stats()["last_build"]
         port = _free_port()
-        with ServerThread(create_app(state), port):
+        with ServerThread(create_app(state), port), recorded_queries(store) as seen:
             http = HttpClient(port)
             ids = []
             for i, png in enumerate(pngs):
@@ -1348,9 +1627,8 @@ def phase_tiers(embedder, device="cuda", store_rows=STORE_ROWS) -> dict:
                 tops[name] = [r["id"] for r in body["results"]]
             _sync(device)
             launches = {"K1": tile_max.launches, "K1_int8": tile_max_int8.launches}
-        store.query = query
         assert tops["image"][0] == ids[1], tops["image"]
-        last_build = store.stats()["last_build"]
+        uploads_patched = store.stats()["patched_mutations"]
         queries = torch.cat([q.to(device) for q in seen])
         brute, bf16 = _references(store, queries, device)
         equal = {
@@ -1359,15 +1637,30 @@ def phase_tiers(embedder, device="cuda", store_rows=STORE_ROWS) -> dict:
         }
         text_vec = queries[:1]
         wall = _host_ms(lambda: store.query(text_vec, n_results=10), device)
+        # patches at full size: 64 deletes, then 64 updates (the host tier
+        # cannot patch an update: it rebuilds, after the check)
+        store.delete(pre_ids[:64])
+        if engine != "tilemax-host":
+            store.update(pre_ids[100:164], embeddings=_unit_rows(64, cfg.projection_dim, 7, device))
+        patched = check_patched(store, queries, device)
+        if engine == "tilemax-host":
+            store.update(pre_ids[100:164], embeddings=_unit_rows(64, cfg.projection_dim, 7, device))
+            patched["ids_equal_brute_force_after_rebuild"] = (
+                store.query(queries, n_results=10)["ids"] == _references(store, queries, device)[0]
+            )
+        st = store.stats()
+        patched.update({k: st[k] for k in ("patched_mutations", "rebuild_mutations")})
         row = {
             "tier": tier,
             "config": cfg.name,
             "store_rows": store.count(),
-            "last_build": last_build,
+            "first_build": first_build,
             **times,
             "ids_equal_brute_force_and_bf16": equal,
             "launches": launches,
             "store_query_ms": wall,
+            "uploads_patched": uploads_patched,
+            "patches": patched,
         }
         if torch.device(device).type == "cuda":
             row["device_store_query"] = device_busy(
@@ -1376,10 +1669,20 @@ def phase_tiers(embedder, device="cuda", store_rows=STORE_ROWS) -> dict:
         log("tiers: " + json.dumps(row))
         # one int8 phase 1 a search on the card; the CPU runs plain versions
         expected = {"K1": 0, "K1_int8": 3 if torch.device(device).type == "cuda" else 0}
-        if last_build["engine"] != engine or not all(equal.values()) or launches != expected:
+        # the uploads and the deletes patch; the updates patch, or rebuild once on the host tier
+        want_patches = (N_TIER_UPLOADS + 1, 1) if engine == "tilemax-host" else (N_TIER_UPLOADS + 2, 0)
+        if (
+            first_build["engine"] != engine
+            or not all(equal.values())
+            or launches != expected
+            or uploads_patched != N_TIER_UPLOADS
+            or not patched["ok"]
+            or not patched.get("ids_equal_brute_force_after_rebuild", True)
+            or (patched["patched_mutations"], patched["rebuild_mutations"]) != want_patches
+        ):
             raise AssertionError(f"the {tier} tier failed: {row}")
         counts[tier] = launches
-        del state, store, query, recording
+        del state, store
         gc.collect()
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1553,7 +1856,8 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
     bf16 at 16 queries (the tensor-core kernel), the W8A8 tower's quantizes
     in the bulk-ingest chunk of 64 images (bf16), and K5 and K6 at their
     scripts' shapes (8 queries over 2^20 rows, tile 2048). Launches are
-    those of each path's run: slices 1-3 for K1-K4, the two experiment
+    those of each path's HTTP requests: slices 1-3 for K1-K4 (slice 1's
+    five searches, one of them the first after the uploads), the two experiment
     scripts for K5, K6 and the tensor-core K1 (exp_pallas_search's Q = 8
     row-major phase)."""
 

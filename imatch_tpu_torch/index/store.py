@@ -1,19 +1,26 @@
 """Vector store with ChromaDB-collection semantics, on the card.
 
-Counterpart of ``imatch_tpu/index/store.py`` ``VectorStore``, with this
-slice's subset of it: ``add`` (with the up-front validation), ``get``
-with ``include=``, ``update``, ``delete`` (tombstones), ``count``,
-``stats`` and ``query``, which returns cosine *distance* ``1 - cos`` like
-a chroma cosine collection (pipeline/search.py maps similarity
-``1 - d/2`` on top).
+Counterpart of ``imatch_tpu/index/store.py`` ``VectorStore``: ``add``
+(with the up-front validation), ``get`` with ``include=``, ``update``,
+``delete`` (tombstones), ``count``, ``stats`` and ``query``, which returns
+cosine *distance* ``1 - cos`` like a chroma cosine collection
+(pipeline/search.py maps similarity ``1 - d/2`` on top).
 
 - The host copy (fp32 numpy rows + id/metadata/document lists) is the
-  source of truth. Slot capacity doubles from 1024 as rows arrive.
-- The device state (``index/search.py`` ``DeviceCorpus``) is built on the
-  store's device at the first query after a mutation and reused until the
-  next one; it covers the slots in use, padded to whole tiles.
+  source of truth. Slot capacity doubles from 1024 as rows arrive, or
+  starts at ``capacity=`` / IMATCH_STORE_CAPACITY.
+- The device state (``index/search.py`` ``DeviceCorpus``) covers the
+  whole capacity buffer, padded to whole tiles. It is built on the
+  store's device at the first query after an invalidation, from copies of
+  the host buffers taken under the lock, outside the lock, and installed
+  with a generation check. Mutations patch it in O(batch)
+  (``index/patch.py``); a capacity growth or a compaction invalidates it.
 - Deletes are tombstones; compaction rewrites the rows when more than
   half the slots are dead.
+- Persistence, byte for byte JAX's: with ``persist_dir`` every mutation
+  appends to ``journal.jsonl``; ``save`` writes a snapshot generation
+  (``embeddings-<gen>.npy``, ``records-<gen>.json``, ``manifest.json``
+  replaced last) and ``load`` reads a snapshot and replays the journal.
 - Engines: ``tilemax`` (tile_n 512, margin IMATCH_TILEMAX_MARGIN, default
   4, or 16 with int8 scoring), ``pallas`` (tile_n 2048, margin 4; int8
   scoring is coerced to bf16 there, as in JAX), ``tilemax-host`` (int8
@@ -28,16 +35,20 @@ a chroma cosine collection (pipeline/search.py maps similarity
   first k, as the JAX store does: the candidate tiles (k_c + margin) and
   so the answers on near-tied corpora are JAX's.
 
-Not in this slice (ROADMAP.md, Queue 1): the journal, snapshots and
-``load``, incremental device patching (index/patch.py), the query
-coalescer, ``cosine_topk``, and the sharded and IVF engines, which raise
-``NotImplementedError`` naming their ROADMAP item.
+Not ported yet (ROADMAP.md, Queue 1): ``add`` with a device tensor that
+stays on the device (JAX ``_add_device``, ``flush``), the query
+coalescer, ``cosine_topk`` and ``warm``, the IVF snapshot sidecar, and
+the sharded and IVF engines, which raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import base64
+import json
 import logging
 import os
+import tempfile
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
@@ -46,6 +57,7 @@ import numpy as np
 import torch
 
 from imatch_tpu_torch.device import DeviceLike, resolve_device
+from imatch_tpu_torch.index import patch as _patch
 from imatch_tpu_torch.index.search import (
     HOST_MARGIN,
     host_rescore_topk,
@@ -103,8 +115,10 @@ class VectorStore:
     def __init__(
         self,
         dim: Optional[int] = None,
+        persist_dir: Optional[str] = None,
         engine: Optional[str] = None,
         score_dtype: Optional[str] = None,
+        capacity: Optional[int] = None,
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
@@ -134,6 +148,10 @@ class VectorStore:
             self.margin = HOST_MARGIN
         else:
             self.margin = 4
+        # When set, every mutation appends to journal.jsonl in it, and a
+        # snapshot (save) compacts the journal.
+        self.persist_dir = persist_dir
+        self._journal_len = 0
         self._lock = threading.RLock()
         self._ids: List[str] = []
         self._slot: Dict[str, int] = {}
@@ -143,13 +161,30 @@ class VectorStore:
         self._alive: Optional[np.ndarray] = None  # (cap,) bool
         self._n = 0  # slots in use (incl. tombstones)
         self._dead = 0
-        self._device_corpus = None  # (engine tag, state), dropped on mutation
+        self._device_corpus = None  # (engine tag, state), patched or dropped on mutation
+        self._gen = 0  # bumped on every invalidation or patch (build-outside-lock)
+        # queries holding a reference to the prepared state, between the
+        # snapshot and their results on the host; while zero, patches
+        # write into the state's tensors in place (index/patch.py)
+        self._inflight = 0
+        self._patched = 0  # mutations absorbed by an O(batch) patch
+        self._patch_rebuilds = 0  # mutations that fell back to invalidate
         self._last_build: Optional[dict] = None
+        self._last_load: Optional[dict] = None  # stats(): load()'s seconds
+        # A slot reservation: a right-sized one means steady-state ingest
+        # never grows the capacity, so every add patches. Remembered, not
+        # only applied here: load() builds the store with dim=None, so the
+        # first _ensure_capacity once dim is known honours it.
+        if capacity is None:
+            capacity = int(os.environ.get("IMATCH_STORE_CAPACITY", "0")) or None
+        self._reserve = int(capacity) if capacity else 0
+        if self._reserve and dim:
+            self._ensure_capacity(0)
 
     # -- capacity -----------------------------------------------------------
 
     def _ensure_capacity(self, extra: int):
-        need = self._n + extra
+        need = max(self._n + extra, self._reserve)
         cap = 0 if self._emb is None else self._emb.shape[0]
         if need <= cap:
             return
@@ -162,6 +197,8 @@ class VectorStore:
             emb[: self._n] = self._emb[: self._n]
             alive[: self._n] = self._alive[: self._n]
         self._emb, self._alive = emb, alive
+        self._device_corpus = None
+        self._gen += 1
 
     def _maybe_compact(self):
         if self._dead * 2 > self._n and self._n >= _MIN_CAP:
@@ -177,6 +214,79 @@ class VectorStore:
             self._n = len(keep)
             self._dead = 0
             self._slot = {d: i for i, d in enumerate(self._ids)}
+            self._device_corpus = None
+            self._gen += 1
+
+    # -- journal ------------------------------------------------------------
+
+    @staticmethod
+    def _enc_emb(vec: np.ndarray) -> str:
+        return base64.b64encode(np.asarray(vec, np.float32).tobytes()).decode("ascii")
+
+    @staticmethod
+    def _dec_emb(s: str) -> np.ndarray:
+        return np.frombuffer(base64.b64decode(s), dtype=np.float32)
+
+    def _journal(self, *ops: dict):
+        if self.persist_dir is None or not ops:
+            return
+        os.makedirs(self.persist_dir, exist_ok=True)
+        path = os.path.join(self.persist_dir, "journal.jsonl")
+        with open(path, "a", encoding="utf-8") as f:
+            for op in ops:
+                f.write(json.dumps(op) + "\n")
+            f.flush()
+            # one fsync a batch: power loss loses no acknowledged op;
+            # IMATCH_JOURNAL_FSYNC=0 trades that for latency
+            if os.environ.get("IMATCH_JOURNAL_FSYNC", "1") != "0":
+                os.fsync(f.fileno())
+        self._journal_len += len(ops)
+
+    def checkpoint(self, force: bool = False):
+        """Compact the journal into a snapshot when it has grown past a
+        quarter of the live set (at least 256 ops), or always with force."""
+        if self.persist_dir is None:
+            return
+        with self._lock:
+            if force or self._journal_len >= max(256, self.count() // 4):
+                self.save(self.persist_dir)
+
+    # -- incremental device-state maintenance --------------------------------
+
+    def _patch_or_invalidate(self, kind: str, slots, rows=None):
+        """Mutation epilogue (caller holds the lock): absorb the mutation
+        into the prepared state with an O(batch) patch (index/patch.py)
+        instead of dropping it, which would make the next query copy and
+        upload the whole corpus again. Falls back to invalidation when the
+        engine or the patch declines. The state's tensors are written in
+        place only while no query holds it."""
+        self._gen += 1
+        dc = self._device_corpus
+        if dc is None:
+            return
+        if not (_patch.enabled() and len(slots)):
+            self._device_corpus = None
+            self._patch_rebuilds += 1
+            return
+        slots = np.asarray(slots, np.int64)
+        in_place = self._inflight == 0
+        try:
+            if kind == "append":
+                res = _patch.append_rows(dc, slots, rows, in_place=in_place)
+            elif kind == "delete":
+                res = _patch.delete_rows(dc, slots, in_place=in_place)
+            else:
+                res = _patch.update_rows(dc, slots, rows, in_place=in_place)
+            if res is not None:
+                self._device_corpus = res
+                self._patched += 1
+                return
+        except Exception:
+            # a failed patch degrades to the always-correct rebuild (an
+            # in-place write may have run part way: the state is dropped)
+            logger.exception("incremental %s patch failed; falling back to a rebuild", kind)
+        self._device_corpus = None
+        self._patch_rebuilds += 1
 
     # -- chroma-like API ----------------------------------------------------
 
@@ -225,7 +335,22 @@ class VectorStore:
             self._docs.extend(documents)
             self._slot.update(zip(ids, range(base, base + len(ids))))
             self._n = base + len(ids)
-            self._device_corpus = None
+            self._patch_or_invalidate("append", np.arange(base, self._n, dtype=np.int64), embeddings)
+            if self.persist_dir is not None:
+                # ops are built only when a journal exists: the base64
+                # encode dominates a bulk add otherwise
+                self._journal(
+                    *(
+                        {
+                            "op": "add",
+                            "id": id_,
+                            "metadata": md,
+                            "document": doc,
+                            "embedding": self._enc_emb(embeddings[i]),
+                        }
+                        for i, (id_, md, doc) in enumerate(zip(ids, metadatas, documents))
+                    )
+                )
 
     def get(
         self,
@@ -279,33 +404,53 @@ class VectorStore:
                         f"embedding shape {embeddings.shape} != "
                         f"({len(ids)}, {self.dim})"
                     )
-            for i, slot in enumerate(slots_all):
+            emb_slots: List[int] = []
+            ops: List[dict] = []
+            for i, (id_, slot) in enumerate(zip(ids, slots_all)):
                 if metadatas is not None:
                     self._meta[slot] = metadatas[i]
                 if embeddings is not None:
                     self._emb[slot] = embeddings[i]
-            if embeddings is not None and slots_all:
-                self._device_corpus = None
+                    emb_slots.append(slot)
+                op = {"op": "update", "id": id_}
+                if metadatas is not None:
+                    op["metadata"] = metadatas[i]
+                if embeddings is not None:
+                    op["embedding"] = self._enc_emb(embeddings[i])
+                ops.append(op)
+            # one journal write and fsync for the whole batch
+            self._journal(*ops)
+            if emb_slots:
+                self._patch_or_invalidate(
+                    "update", np.asarray(emb_slots, np.int64), self._emb[emb_slots]
+                )
 
     def delete(self, ids: Sequence[str]):
         with self._lock:
-            deleted = False
+            deleted = []
+            slots = []
             for id_ in ids:
                 slot = self._slot.pop(id_, None)
                 if slot is not None and self._alive[slot]:
                     self._alive[slot] = False
                     self._dead += 1
-                    deleted = True
+                    deleted.append(id_)
+                    slots.append(slot)
             if deleted:
+                gen0 = self._gen
                 self._maybe_compact()
-                self._device_corpus = None
+                if self._gen == gen0:
+                    # no compaction: clearing validity entries suffices
+                    self._patch_or_invalidate("delete", np.asarray(slots, np.int64))
+            self._journal(*({"op": "delete", "id": i} for i in deleted))
 
     def count(self) -> int:
         with self._lock:
             return self._n - self._dead
 
     def stats(self) -> dict:
-        """Operational snapshot: engine, occupancy, last device build."""
+        """Operational snapshot: engine, occupancy, journal, patches and
+        the last device build."""
         with self._lock:
             cap = 0 if self._emb is None else self._emb.shape[0]
             out = {
@@ -320,24 +465,30 @@ class VectorStore:
                 "tile_n": self.tile_n,
                 "margin": self.margin,
                 "device_ready": self._device_corpus is not None,
+                "journal_ops": self._journal_len,
+                # incremental mutation health: patched should dominate
+                # rebuilds in steady state (index/patch.py)
+                "patched_mutations": self._patched,
+                "rebuild_mutations": self._patch_rebuilds,
             }
             if self._last_build is not None:
                 out["last_build"] = dict(self._last_build)
+            if self._last_load is not None:
+                out["last_load"] = dict(self._last_load)
             return out
 
     # -- search -------------------------------------------------------------
 
-    def _engine_for(self) -> str:
+    def _engine_for(self, emb_copy: np.ndarray) -> str:
         """Effective engine for one build (JAX ``_engine_for``). With
         IMATCH_INDEX_ENGINE=auto, when the device copies of the tilemax
         engine (score dtype, int8 counted as 2 bytes as in JAX, plus the
         fp32 rescore copy) would exceed IMATCH_AUTO_HBM_FRAC (default 0.5)
         of the card's memory (IMATCH_DEVICE_BYTES_BUDGET, else the card's
         total), the build escalates to tilemax-host, whose int8 codes are
-        the only device copy. The footprint counts the slot capacity, as
-        JAX's does, so both packages escalate at the same row count; the
-        port uploads only the slots in use, which is at most that. A
-        non-auto engine is never overridden."""
+        the only device copy. The footprint counts the capacity buffer the
+        build uploads (``emb_copy``), as JAX's does. A non-auto engine is
+        never overridden."""
         eng = self.engine
         if not self._auto or eng != "tilemax":
             return eng
@@ -346,7 +497,7 @@ class VectorStore:
             budget = torch.cuda.mem_get_info(self.device)[1]
         if not budget:
             return eng
-        elems = self._emb.size
+        elems = emb_copy.size
         score_bytes = 2 if self.score_dtype == torch.int8 else self.score_dtype.itemsize
         per_device = elems * (score_bytes + 4)
         host_tier = elems  # the int8 codes alone
@@ -364,25 +515,66 @@ class VectorStore:
             return "tilemax-host"
         return eng
 
-    def _build(self, eng: str):
-        """The prepared state of engine ``eng`` over the slots in use."""
-        emb, alive = self._emb[: self._n], self._alive[: self._n]
+    def _build_device(self, emb_copy: np.ndarray, alive_copy: np.ndarray):
+        """``(engine tag, state)`` over the whole capacity buffer, from
+        COPIES of the host buffers (on the CPU a tensor can alias numpy
+        memory that writers mutate in place). Runs outside the store lock:
+        at capacity scale the upload and quantize take from a second to
+        ten, and must not block writers."""
+        t0 = time.perf_counter()
+        eng = self._engine_for(emb_copy)
         if eng == "tilemax-host":
             # host-side quantize: only the int8 codes cross to the card
-            return prepare_host_rescore_corpus(
-                emb.copy(), alive.copy(), tile_n=self.tile_n, device=self.device
+            state = prepare_host_rescore_corpus(
+                emb_copy, alive_copy, tile_n=self.tile_n, device=self.device
             )
-        dtype = self.score_dtype
-        if eng == "pallas" and dtype == torch.int8:
-            dtype = torch.bfloat16  # int8 is a tilemax option, as in JAX
-        return prepare_device_corpus(
-            emb,
-            alive,
-            tile_n=self.tile_n,
-            score_dtype=dtype,
-            margin=self.margin,
-            device=self.device,
-        )
+        else:
+            dtype = self.score_dtype
+            if eng == "pallas" and dtype == torch.int8:
+                dtype = torch.bfloat16  # int8 is a tilemax option, as in JAX
+            state = prepare_device_corpus(
+                emb_copy,
+                alive_copy,
+                tile_n=self.tile_n,
+                score_dtype=dtype,
+                margin=self.margin,
+                device=self.device,
+            )
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # the build's time, not its enqueue
+        # info-only write; racing builds yield slightly stale stats()
+        self._last_build = {
+            "engine": eng,
+            "seconds": round(time.perf_counter() - t0, 3),
+            "rows": int(emb_copy.shape[0]),
+        }
+        return eng, state
+
+    def _device_state(self):
+        """The prepared state, built under the lock if there is none
+        (caller need not hold it). For internal and test use: the query
+        path goes through ``_snapshot_for_query``, which builds outside
+        the lock. A mutation after this returns may patch the state in
+        place; do not hold it across mutations."""
+        with self._lock:
+            if self._device_corpus is None:
+                if self._emb is None:
+                    return None
+                self._device_corpus = self._build_device(self._emb.copy(), self._alive.copy())
+            return self._device_corpus
+
+    def _run_engine(self, q, dc, k: int):
+        """One engine call on the prepared state ``dc`` (``_build_device``'s
+        pair): (Q, k) scores and indices as numpy arrays, so the results
+        are on the host when it returns."""
+        if not isinstance(q, torch.Tensor):
+            q = torch.from_numpy(np.asarray(q, dtype=np.float32))
+        eng, state = dc
+        q = q.float().to(self.device)
+        if eng == "tilemax-host":
+            return host_rescore_topk(q, state, k=k)
+        scores, idx = tilemax_topk(q, state, k=k)
+        return scores.cpu().numpy(), idx.cpu().numpy()
 
     @staticmethod
     def _k_bucket(k: int) -> int:
@@ -391,23 +583,49 @@ class VectorStore:
         return 1 << max(0, k - 1).bit_length()
 
     def _snapshot_for_query(self):
-        """(live count, device corpus, id/meta/doc lists), consistent with
-        each other. Lock-free use afterwards is safe: ``add`` only appends
-        to the lists, ``delete`` flips host flags the built corpus no
-        longer reads, compaction rebinds the lists, and a mutation drops
-        the device corpus for a new one instead of writing into it."""
+        """Consistent (live count, device state, id/meta/doc lists). Safe
+        to read lock-free afterwards: ``add`` only appends (indices in the
+        captured state stay valid), ``delete`` only flips the alive mask,
+        and compaction *rebinds* the lists rather than mutating them, so
+        the captured references keep the layout the captured state was
+        built from. A patch writes into the captured tensors only when no
+        query holds them: this one does, from here to ``_release_snapshot``.
+
+        The buffer COPY happens under the lock (consistency), but the
+        build (upload and quantize, seconds at capacity scale) runs
+        OUTSIDE it and is installed with a generation check, so writers
+        never wait on a rebuild."""
         with self._lock:
             live = self.count()
-            if self._device_corpus is None and live:
-                t0 = time.perf_counter()
-                eng = self._engine_for()
-                self._device_corpus = (eng, self._build(eng))
-                self._last_build = {
-                    "engine": eng,
-                    "seconds": round(time.perf_counter() - t0, 3),
-                    "rows": self._n,
-                }
-            return live, self._device_corpus, self._ids, self._meta, self._docs
+            dc = self._device_corpus
+            ids_l, meta_l, docs_l = self._ids, self._meta, self._docs
+            gen = self._gen
+            if dc is None:
+                if self._emb is None:
+                    return live, None, ids_l, meta_l, docs_l
+                emb = self._emb.copy()
+                alive = self._alive.copy()
+            else:
+                self._inflight += 1
+        if dc is None:
+            dc = self._build_device(emb, alive)
+            with self._lock:
+                if self._gen == gen and self._device_corpus is None:
+                    self._device_corpus = dc
+                # a concurrent mutation invalidated or patched the store:
+                # dc is still consistent with the lists captured above, so
+                # THIS query serves it; the next one builds afresh. Either
+                # way it now holds a state a later patch could write into.
+                self._inflight += 1
+        return live, dc, ids_l, meta_l, docs_l
+
+    def _release_snapshot(self, dc):
+        """Drop the hold taken by ``_snapshot_for_query`` (none was taken
+        for an empty store)."""
+        if dc is None:
+            return
+        with self._lock:
+            self._inflight -= 1
 
     def query(
         self,
@@ -417,7 +635,9 @@ class VectorStore:
     ) -> dict:
         """Chroma-shaped result: lists of lists, ascending cosine distance.
         ``query_embeddings`` may be a tensor already on the device (the
-        embedder's output), which then feeds the engine with no host copy."""
+        embedder's output), which then feeds the engine with no host copy.
+        The engine runs outside the store lock: writers never wait for a
+        query."""
         if isinstance(query_embeddings, torch.Tensor):
             q = query_embeddings.float()
         else:
@@ -426,19 +646,16 @@ class VectorStore:
             q = q[None]
         qn = q.shape[0]
         live, dc, ids_l, meta_l, docs_l = self._snapshot_for_query()
-        out = {"ids": [], "distances": [], "metadatas": [], "documents": []}
-        k = min(n_results, live)
-        if live == 0 or k <= 0:
-            for key in out:
-                out[key] = [[] for _ in range(qn)]
-            return self._strip_include(out, include)
-        k_c = self._k_bucket(k)
-        eng, state = dc
-        if eng == "tilemax-host":
-            scores, idx = host_rescore_topk(q.to(self.device), state, k=k_c)
-        else:
-            scores, idx = tilemax_topk(q.to(self.device), state, k=k_c)
-            scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
+        try:
+            out = {"ids": [], "distances": [], "metadatas": [], "documents": []}
+            k = min(n_results, live)
+            if live == 0 or k <= 0:
+                for key in out:
+                    out[key] = [[] for _ in range(qn)]
+                return self._strip_include(out, include)
+            scores, idx = self._run_engine(q, dc, self._k_bucket(k))
+        finally:
+            self._release_snapshot(dc)
         scores, idx = scores[:, :k], idx[:, :k]
         for qi in range(qn):
             row_ids, row_d, row_m, row_doc = [], [], [], []
@@ -463,3 +680,168 @@ class VectorStore:
             if key not in include:
                 out.pop(key)
         return out
+
+    # -- persistence --------------------------------------------------------
+
+    def save(self, path: Optional[str] = None):
+        """Atomic durable snapshot (compacted); resets the journal.
+
+        Data files are written under new ``embeddings-<gen>.npy`` /
+        ``records-<gen>.json`` names (the records one JSON array) and the
+        manifest, replaced last, is the commit record that points at them:
+        a crash at any point leaves the previous generation intact. JAX's
+        IVF sidecar (``ivf-<gen>.npz``) is never written: the port has no
+        IVF state (ROADMAP.md Queue 1 step 11)."""
+        path = path or self.persist_dir
+        if path is None:
+            raise ValueError("no path and no persist_dir")
+        with self._lock:
+            os.makedirs(path, exist_ok=True)
+            slots = [i for i in range(self._n) if self._alive[i]]
+            gen = int(time.time() * 1e6)
+            emb_name = f"embeddings-{gen}.npy"
+            rec_name = f"records-{gen}.json"
+            tmp = tempfile.mkdtemp(dir=path, prefix=".snapshot-")
+            try:
+                with open(os.path.join(tmp, emb_name), "wb") as f:
+                    np.save(
+                        f,
+                        self._emb[slots] if slots else np.zeros((0, self.dim or 0), np.float32),
+                    )
+                    f.flush()
+                    os.fsync(f.fileno())
+                with open(os.path.join(tmp, rec_name), "w", encoding="utf-8") as f:
+                    json.dump(
+                        [
+                            {"id": self._ids[s], "metadata": self._meta[s], "document": self._docs[s]}
+                            for s in slots
+                        ],
+                        f,
+                    )
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(os.path.join(tmp, emb_name), os.path.join(path, emb_name))
+                os.replace(os.path.join(tmp, rec_name), os.path.join(path, rec_name))
+                mpath = os.path.join(tmp, "manifest.json")
+                manifest = {
+                    "dim": self.dim,
+                    "count": len(slots),
+                    "embeddings": emb_name,
+                    "records": rec_name,
+                    "generation": gen,
+                }
+                with open(mpath, "w") as f:
+                    json.dump(manifest, f)
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(mpath, os.path.join(path, "manifest.json"))
+            finally:
+                for leftover in os.listdir(tmp):
+                    os.unlink(os.path.join(tmp, leftover))
+                os.rmdir(tmp)
+            journal = os.path.join(path, "journal.jsonl")
+            if os.path.exists(journal):
+                os.unlink(journal)
+            self._journal_len = 0
+            # collect superseded generations (and legacy names, and a
+            # JAX store's IVF sidecars, which this snapshot no longer pairs)
+            for f in os.listdir(path):
+                if f.startswith(("embeddings", "records", "ivf")) and f not in (emb_name, rec_name):
+                    try:
+                        os.unlink(os.path.join(path, f))
+                    except OSError:
+                        pass
+
+    @classmethod
+    def load(cls, path: str, persist: bool = True, device: DeviceLike = None) -> "VectorStore":
+        """Rehydrate: snapshot first, then replay the journal. With
+        ``persist`` the returned store keeps journaling into ``path``.
+        Engine and score dtype come from the environment, as in JAX; the
+        store lives on ``device`` (the card unless the CPU is asked for).
+        A manifest's ``ivf`` sidecar is ignored: the next build is a full
+        one, as JAX's is without the sidecar. ``stats()["last_load"]``
+        records the seconds of the snapshot read and of the replay."""
+        t0 = time.perf_counter()
+        manifest_path = os.path.join(path, "manifest.json")
+        store = cls(device=device)
+        if os.path.exists(manifest_path):
+            with open(manifest_path) as f:
+                manifest = json.load(f)
+            store.dim = manifest["dim"]
+            emb_file = manifest.get("embeddings", "embeddings.npy")
+            rec_file = manifest.get("records", "records.jsonl")
+            emb = np.load(os.path.join(path, emb_file))
+            with open(os.path.join(path, rec_file), encoding="utf-8") as f:
+                if rec_file.endswith(".jsonl"):
+                    # legacy line-per-record snapshots
+                    records = [json.loads(line) for line in f if line.strip()]
+                else:
+                    records = json.load(f)
+            count = manifest.get("count", len(records))
+            if not (len(records) == count == emb.shape[0]):
+                raise ValueError(
+                    f"corrupt snapshot in {path}: manifest count {count}, "
+                    f"{len(records)} records, {emb.shape[0]} embedding rows"
+                )
+            if records:
+                store.add(
+                    ids=[r["id"] for r in records],
+                    embeddings=emb,
+                    metadatas=[r["metadata"] for r in records],
+                    documents=[r["document"] for r in records],
+                )
+        t1 = time.perf_counter()
+        journal = os.path.join(path, "journal.jsonl")
+        replayed = 0
+        if os.path.exists(journal):
+            with open(journal, "rb") as bf:
+                raw = bf.read()
+            # scan by byte offset, so a torn tail (a crash mid-append) can
+            # be TRUNCATED: the next append would glue onto the fragment
+            # and every later op would be lost at the next restart
+            good_end = 0
+            torn = False
+            pos = 0
+            for chunk in raw.split(b"\n"):
+                end = min(pos + len(chunk) + 1, len(raw))
+                line = chunk.decode("utf-8", "replace").strip()
+                if not line:
+                    pos = good_end = end
+                    continue
+                try:
+                    op = json.loads(line)
+                except json.JSONDecodeError:
+                    torn = True
+                    break
+                pos = good_end = end
+                try:
+                    if op["op"] == "add":
+                        store.add(
+                            ids=[op["id"]],
+                            embeddings=[cls._dec_emb(op["embedding"])],
+                            metadatas=[op.get("metadata")],
+                            documents=[op.get("document")],
+                        )
+                    elif op["op"] == "update":
+                        store.update(
+                            ids=[op["id"]],
+                            embeddings=[cls._dec_emb(op["embedding"])] if "embedding" in op else None,
+                            metadatas=[op["metadata"]] if "metadata" in op else None,
+                        )
+                    elif op["op"] == "delete":
+                        store.delete([op["id"]])
+                    replayed += 1
+                except (KeyError, ValueError):
+                    continue  # idempotent replay: duplicate adds etc.
+            if torn and persist:
+                with open(journal, "r+b") as bf:
+                    bf.truncate(good_end)
+        if persist:
+            store.persist_dir = path
+            store._journal_len = replayed
+        store._last_load = {
+            "snapshot_s": round(t1 - t0, 3),
+            "replay_s": round(time.perf_counter() - t1, 3),
+            "replayed_ops": replayed,
+        }
+        return store

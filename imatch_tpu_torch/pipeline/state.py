@@ -1,16 +1,20 @@
 """Application state — the reference app's module globals, made explicit.
 
-Counterpart of ``imatch_tpu/pipeline/state.py`` ``AppState`` for this
-slice: directories, the lazily built embedder, the store and the image
-metadata mirror, with no segmenter and the ``NullCaptioner``. The store
-starts empty: snapshot load and save come with the store's persistence
-(ROADMAP.md, next slice).
+Counterpart of ``imatch_tpu/pipeline/state.py`` ``AppState``:
+directories, the lazily built embedder, the store (loaded from the
+snapshot and journal under ``data_dir`` unless ``autoload=False``) and
+the image metadata mirror hydrated from it, with no segmenter and the
+``NullCaptioner``. ``snapshot`` is the durability point after an upload
+and ``reset`` empties the app. Filters (``filters.json``, JAX
+``load_filters``/``save_filters``) come with the captioner (ROADMAP.md
+Queue 1 step 10).
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import shutil
 import threading
 from typing import Dict, Optional
 
@@ -29,6 +33,7 @@ class AppState:
         embedder: Optional[ClipEmbedder] = None,
         captioner=None,
         device: DeviceLike = None,
+        autoload: bool = True,
     ):
         self.device = resolve_device(device)
         self.root = os.path.abspath(root)
@@ -36,7 +41,8 @@ class AppState:
         self.uploads_dir = os.path.join(self.static_dir, "uploads")
         self.processed_dir = os.path.join(self.static_dir, "processed")
         self.encoded_dir = os.path.join(self.static_dir, "encoded")
-        for d in (self.uploads_dir, self.processed_dir, self.encoded_dir):
+        self.data_dir = os.path.join(self.root, os.environ.get("IMATCH_DATA_DIR", "index_data"))
+        for d in (self.uploads_dir, self.processed_dir, self.encoded_dir, self.data_dir):
             os.makedirs(d, exist_ok=True)
         self.embedder = embedder
         self.captioner = captioner if captioner is not None else NullCaptioner()
@@ -44,7 +50,12 @@ class AppState:
         self.lock = threading.RLock()
         self._embedder_lock = threading.Lock()
         self.image_metadata: Dict[str, dict] = {}
-        self.store = VectorStore(device=self.device)
+        self.store = (
+            VectorStore.load(self.data_dir, device=self.device)
+            if autoload
+            else VectorStore(device=self.device)
+        )
+        self._hydrate_metadata()
 
     def get_embedder(self) -> ClipEmbedder:
         """Built on first use, under its own lock: holding ``self.lock``
@@ -54,3 +65,42 @@ class AppState:
                 if self.embedder is None:
                     self.embedder = ClipEmbedder(device=self.device)
         return self.embedder
+
+    def _hydrate_metadata(self):
+        """The mirror of the store's metadata (the reference's
+        load_metadata_from_chromadb)."""
+        got = self.store.get(include=["metadatas"])
+        for id_, md in zip(got["ids"], got["metadatas"]):
+            if md is not None:
+                self.image_metadata[id_] = md
+        if got["ids"]:
+            logger.info("hydrated %d image records", len(got["ids"]))
+
+    # -- persistence --------------------------------------------------------
+
+    def snapshot(self, force: bool = False):
+        """Durability point. Mutations are already journaled op by op; this
+        compacts the journal into a full snapshot when it has grown (or at
+        once with force)."""
+        self.store.checkpoint(force=force)
+
+    # -- reset --------------------------------------------------------------
+
+    def reset(self):
+        """reset_system: empty the store and the mirror, wipe the image
+        directories, snapshot."""
+        with self.lock:
+            # logical state FIRST: if the rmtree below fails part way (an
+            # in-flight ingest writes files outside state.lock), the API
+            # must not list images from a stale mirror over an empty store
+            all_ids = self.store.get(include=[])["ids"]
+            if all_ids:
+                self.store.delete(all_ids)
+            self.image_metadata.clear()
+            for d in (self.processed_dir, self.encoded_dir, self.uploads_dir):
+                if os.path.isdir(d):
+                    # racing file creation must not abort the reset: any
+                    # stragglers are orphan files, not logical state
+                    shutil.rmtree(d, ignore_errors=True)
+                os.makedirs(d, exist_ok=True)
+            self.snapshot(force=True)

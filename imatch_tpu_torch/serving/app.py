@@ -4,16 +4,18 @@ ported so far.
 Counterpart of ``imatch_tpu/serving/app.py`` ``create_app`` for
 ``/api/upload``, ``/api/upload-folder``, ``/api/search/text`` (POST and
 GET), ``/api/search/image``, ``/api/search/multimodal``, ``/api/images``,
-``/api/image/{id}`` and ``/api/health``, with the same responses (ids,
-409 on a duplicate, 422 for string fields sent as file parts, ``limit=0``
--> up to 1000, the folder's per-file statuses and counts). The other
-routes of the JAX app answer 501 and name the ROADMAP.md item that will
-bring them.
+``/api/image/{id}``, ``PUT /api/metadata/{id}``, ``/api/reset`` and
+``/api/health``, with the same responses (ids, 409 on a duplicate, 422 for
+string fields sent as file parts, ``limit=0`` -> up to 1000, the folder's
+per-file statuses and counts). The other routes of the JAX app answer 501
+and name the ROADMAP.md item that will bring them.
 
 Uploads decode with PIL, a folder's files on a thread pool: the JAX app's
 loader takes this path where its C++ decoder is not built, and both give
-the same pixels for lossless formats. There is no snapshot after an
-upload while the store's persistence is not ported.
+the same pixels for lossless formats. A new upload, a folder with at
+least one success and a metadata edit end at ``state.snapshot()``, as in
+the JAX app: the journal already holds each op, and the snapshot compacts
+it once it has grown.
 """
 
 from __future__ import annotations
@@ -47,13 +49,11 @@ CORS_ORIGINS = [
 _LATER_ROUTES = [
     ("POST", "/api/search/batch", "Queue 1 step 7 (the remaining routes)"),
     ("POST", "/api/search/image-batch", "Queue 1 step 7 (the remaining routes)"),
-    ("PUT", "/api/metadata/{image_id}", "Queue 1 step 7 (the remaining routes)"),
     ("GET", "/api/filters", "Queue 1 step 10 (Moondream captioner and filters)"),
     ("POST", "/api/filters", "Queue 1 step 10 (Moondream captioner and filters)"),
     ("POST", "/api/filters/batch", "Queue 1 step 10 (Moondream captioner and filters)"),
     ("DELETE", "/api/filters/{filter_query}", "Queue 1 step 10 (Moondream captioner and filters)"),
     ("GET", "/api/filter-progress", "Queue 1 step 10 (Moondream captioner and filters)"),
-    ("POST", "/api/reset", "Queue 1 step 7 (the remaining routes)"),
     ("POST", "/search", "Queue 1 step 7 (the remaining routes)"),
     ("POST", "/upload-samples", "Queue 1 step 7 (the remaining routes)"),
     ("GET", "/api/metrics", "Queue 1 step 13 (operations surface)"),
@@ -179,6 +179,7 @@ def create_app(
             logger.error("upload error: %s", e)
             return JSONResponse({"success": False, "error": str(e)}, 500)
         if is_new:
+            state.snapshot()
             return {"success": True, "metadata": metadata}
         return JSONResponse(
             {
@@ -228,10 +229,13 @@ def create_app(
             else:
                 entry["reason"] = r.get("error", "error")
             results.append(entry)
+        successful = sum(r["status"] == "success" for r in results)
+        if successful:
+            state.snapshot()
         return {
             "success": True,
             "total": len(files),
-            "successful": sum(r["status"] == "success" for r in results),
+            "successful": successful,
             "skipped": sum(r["status"] == "skipped" for r in results),
             "failed": sum(r["status"] == "error" for r in results),
             "results": results,
@@ -304,6 +308,47 @@ def create_app(
         if md is None:
             return JSONResponse({"success": False, "error": "Image not found"}, 404)
         return {"success": True, "image": md}
+
+    @app.put("/api/metadata/{image_id}")
+    def update_metadata(req, image_id):
+        form = req.form()
+        description = form.get("description")
+        if description is None:
+            # required, as the reference's Form(...): a partial PUT must
+            # not null the stored description
+            return JSONResponse({"success": False, "error": "description field required"}, 422)
+        if not isinstance(description, str):
+            return JSONResponse({"success": False, "error": "description must be a string"}, 422)
+        custom_metadata = form.get("custom_metadata")
+        if custom_metadata is not None and not isinstance(custom_metadata, str):
+            return JSONResponse({"success": False, "error": "custom_metadata must be a string"}, 422)
+        with state.lock:
+            # existence checked inside the lock (a concurrent reset), and
+            # the store written first, so a vanished id leaves no ghost
+            # record in the mirror
+            current = state.image_metadata.get(image_id)
+            if current is None:
+                return JSONResponse({"success": False, "error": "Image not found"}, 404)
+            metadata = dict(current)
+            metadata["description"] = description
+            # an omitted custom_metadata clears the stored one (reference)
+            metadata["custom_metadata"] = custom_metadata
+            try:
+                # the full record persists, not the reference's 3 fields
+                state.store.update(ids=[image_id], metadatas=[metadata])
+            except KeyError:
+                return JSONResponse({"success": False, "error": "Image not found"}, 404)
+            state.image_metadata[image_id] = metadata
+        state.snapshot()
+        return {"success": True, "metadata": metadata}
+
+    @app.post("/api/reset")
+    def reset(req):
+        try:
+            state.reset()
+        except Exception as e:
+            return JSONResponse({"success": False, "error": str(e)}, 500)
+        return {"success": True}
 
     @app.get("/api/health")
     def health(req):

@@ -67,6 +67,7 @@ def test_every_module_imports_without_jax_or_imatch_tpu():
     # every module was imported (models/clip is reached through the
     # embedder), the kernels' wrappers and the script ports among them
     for name in (
+        "index.patch",
         "ops.quant",
         "ops.kernels.quantize",
         "models.clip.quant",

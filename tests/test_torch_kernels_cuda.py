@@ -426,3 +426,99 @@ def test_w8a8_tower_on_card_matches_cpu(cuda):
         before[2] + n,
     )
     assert float((got * want).sum(-1).min()) >= 0.9999
+
+
+# -- patched device states (index/patch.py) on the card -----------------------
+
+_PATCH_ENGINES = [("tilemax", "bf16"), ("tilemax", "fp32"), ("tilemax", "int8"), ("pallas", "bf16"), ("tilemax-host", "bf16")]
+
+
+def _unit_rows(n, seed, d=768):
+    import numpy as np
+
+    x = np.random.default_rng(seed).standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _states_equal(a, b):
+    import numpy as np
+
+    assert type(a) is type(b)
+    for name, x in a._asdict().items():
+        y = getattr(b, name)
+        if isinstance(x, torch.Tensor):
+            assert x.device == y.device and x.dtype == y.dtype and torch.equal(x, y), name
+        elif isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y, err_msg=name)
+        else:
+            assert x == y, name
+
+
+@pytest.mark.parametrize("in_place", [True, False])
+@pytest.mark.parametrize("engine,dtype", _PATCH_ENGINES)
+def test_patched_state_equals_fresh_build_on_card(cuda, engine, dtype, in_place):
+    """Appends, deletes and (on the device-only engines) updates patch the
+    state on the card; it then equals a fresh build of the same host
+    buffers tensor for tensor, in place (no query holds it) and through
+    clones (one does, and its captured tensors stay as they were). K1, or
+    K1's int8 variant, on the patched state equals its plain version."""
+    from imatch_tpu_torch.index.store import VectorStore
+
+    s = VectorStore(dim=768, engine=engine, score_dtype=dtype, device=cuda)
+    s.add([f"a{i}" for i in range(3000)], _unit_rows(3000, 0) * 2.5)
+    s.query(_unit_rows(1, 9), n_results=3)
+    held = None
+    if not in_place:
+        _, held, _, _, _ = s._snapshot_for_query()
+        before = {k: v.clone() for k, v in held[1]._asdict().items() if isinstance(v, torch.Tensor)}
+    s.add([f"b{i}" for i in range(37)], _unit_rows(37, 1))
+    s.delete([f"a{i}" for i in range(5, 60)])
+    if engine != "tilemax-host":
+        s.update(["a1", "b3"], embeddings=_unit_rows(2, 2))
+    st = s.stats()
+    assert st["rebuild_mutations"] == 0 and st["patched_mutations"] == (2 if engine == "tilemax-host" else 3)
+    patched = s._device_corpus[1]
+    _states_equal(patched, s._build_device(s._emb.copy(), s._alive.copy())[1])
+    if held is not None:
+        for k, v in held[1]._asdict().items():
+            if isinstance(v, torch.Tensor):
+                assert v.data_ptr() != getattr(patched, k).data_ptr(), k
+                assert torch.equal(v, before[k]), k
+        s._release_snapshot(held)
+    q32 = torch.from_numpy(_unit_rows(4, 3)).to(cuda)
+    if patched.scoring.dtype == torch.int8:
+        qi, qscale = _int8_queries(q32, patched.scoring.shape[1])
+        got = tile_max_int8(qi, patched.scoring, qscale, patched.scale, patched.valid, patched.tile_n)
+        assert torch.equal(got, tile_max_int8_plain(qi, patched.scoring, qscale, patched.scale, patched.valid, patched.tile_n))
+    else:
+        qs = torch.zeros((4, patched.scoring.shape[1]), dtype=patched.scoring.dtype, device=cuda)
+        qs[:, :768] = q32
+        got = tile_max(qs, patched.scoring, patched.valid, patched.tile_n)
+        torch.testing.assert_close(got, tile_max_plain(qs, patched.scoring, patched.valid, patched.tile_n), rtol=1e-5, atol=1e-5)
+    # the store answers as a fresh store over the same content
+    fresh = VectorStore(dim=768, engine=engine, score_dtype=dtype, device=cuda)
+    g = s.get(include=["embeddings"])
+    fresh.add(g["ids"], g["embeddings"])
+    q = _unit_rows(3, 4)
+    assert s.query(q, n_results=10)["ids"] == fresh.query(q, n_results=10)["ids"]
+
+
+def test_captured_state_survives_patches_on_card(cuda):
+    """A query that captured the state before a mutation keeps reading the
+    old rows while the store serves the new ones."""
+    from imatch_tpu_torch.index.store import VectorStore
+
+    s = VectorStore(dim=768, engine="tilemax", device=cuda)
+    s.add([f"a{i}" for i in range(500)], _unit_rows(500, 0))
+    s.query(_unit_rows(1, 9), n_results=3)
+    _, dc, ids_l, _, _ = s._snapshot_for_query()
+    new = _unit_rows(4, 1)
+    s.add([f"b{i}" for i in range(4)], new)
+    s.delete(["a7"])
+    _, idx = s._run_engine(_unit_rows(500, 0)[7:8], dc, 4)
+    assert ids_l[idx[0][0]] == "a7"  # deleted after the capture
+    _, idx = s._run_engine(new[:1], dc, 4)
+    assert not any(ids_l[i].startswith("b") for i in idx[0] if i >= 0)
+    s._release_snapshot(dc)
+    assert s.query(new[:1], n_results=1)["ids"] == [["b0"]]
+    assert "a7" not in s.query(_unit_rows(500, 0)[7:8], n_results=3)["ids"][0]
