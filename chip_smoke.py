@@ -12,9 +12,11 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. Build the CUDA kernels from imatch_tpu_torch/csrc/ with nvcc, one
    process a source, all started together.
 3. K2 (flash attention) against its plain PyTorch version at the CLIP
-   towers' shapes, bf16 and fp32, with a fully masked case, and at the
-   bulk-ingest chunk (64, 16, 257, 64). bf16 runs the tensor-core kernel
-   (flash_fwd_mma_kernel), fp32 the CUDA-core one (flash_fwd_kernel).
+   towers' shapes, bf16 and fp32, with a fully masked case, at the
+   bulk-ingest chunk (64, 16, 257, 64), and at the Moondream vision
+   tower's (1, 16, 729, 72) and (16, 16, 729, 72). bf16 runs the
+   tensor-core kernel (flash_fwd_mma_kernel), fp32 the CUDA-core one
+   (flash_fwd_kernel).
 4. K1 (tile max) against its plain version, and the K1 engine against a
    full fp32 brute-force top-k, on a 2^20 x 768 corpus with tombstones and
    duplicate rows, at Q = 1 and 16 (bf16 at Q = 16 runs the tensor-core
@@ -57,6 +59,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    updates (patched, or on the host tier one rebuild for the updates)
    checked as in phase 6 with K1-int8; then an IMATCH_INDEX_ENGINE=auto
    store whose device budget makes its build escalate to tilemax-host.
+8b. The fourth slice end to end: the Moondream captioner and the yes/no
+   filters at moondream2 (full width and depth, seeded random weights,
+   bf16; IMATCH_CAPTIONER=moondream, a synthetic GPT-2-layout vocab of
+   51200 ids) with slice 1's embedder: the vision tower with K2 against
+   the same seed's fp32 weights with the plain attention (per-row
+   cosine), cache-free against cached prefill logits, segmented against
+   monolithic decode, each stage timed; then over HTTP 4 uploads with
+   captions and cached encodings, a filter back-filled to progress 100,
+   searches with filters= that return exactly the Yes images, an upload
+   and a folder of 20 after it (their answers at ingest), DELETE, reset
+   and a restart that keeps the saved filters, with K2's launches held to
+   27 a Moondream encode plus CLIP's tower calls (counted by hooks). The
+   CLIP slices before it run with IMATCH_CAPTIONER=null.
 9. A cut-depth vit-b32 tower on the card against the same weights on the
    CPU, and the W8A8 longclip tower against the fp32 tower on the card.
 10. The two experiment entry points, python -m imatch_tpu_torch.scripts.
@@ -252,6 +267,8 @@ def phase_k2() -> list:
         ((1, 16, 257, 64), False, None),  # one upload's image tower call
         ((1, 12, 248, 64), True, None),  # one text query's tower call
         ((64, 16, 257, 64), False, None),  # the bulk-ingest chunk's image tower
+        ((1, 16, 729, 72), False, None),  # the Moondream vision tower, one upload
+        ((16, 16, 729, 72), False, None),  # the Moondream vision tower, a folder's chunk
     ]
     rows = []
     for shape, causal, kv_len in cases:
@@ -1706,6 +1723,352 @@ def phase_tiers(embedder, device="cuda", store_rows=STORE_ROWS) -> dict:
     return counts
 
 
+# -- phase 8b ----------------------------------------------------------------
+
+MD_CONFIG = "moondream2"
+MD_UPLOADS = 4
+MD_FOLDER = 20  # encode and caption chunks of 16 + 4, one yes/no chunk of 20 padded to 32
+MD_FILTER = "is there a red object"
+MD_FILTER_AFTER_RESET = "is it daytime"
+MD_MIN_COSINE = (0.999, 0.99)  # mean and minimum per-row cosine, bf16 K2 tower vs fp32 plain
+
+
+def synthetic_gpt2_vocab(directory: str, vocab_size: int, eos_id: int):
+    """A GPT-2-layout vocab.json and merges.txt for a model of
+    ``vocab_size`` ids: the 256 byte tokens, ``<|endoftext|>`` at
+    ``eos_id``, and every other id a merged lowercase token of 2-4 letters,
+    so that every id a random-weight model emits decodes to text (the byte
+    fallback drops ids above 257). Returns the two paths."""
+    import itertools
+    import string
+
+    from imatch_tpu_torch.ops.tokenizer import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    vocab = {b2u[b]: b for b in range(256)}
+    vocab["<|endoftext|>"] = eos_id
+    free = [i for i in range(256, vocab_size) if i != eos_id]
+    letters = string.ascii_lowercase
+    words = itertools.chain.from_iterable(
+        itertools.product(letters, repeat=n) for n in (2, 3, 4)
+    )
+    merges = []
+    for i, word in zip(free, words):
+        merges.append(("".join(word[:-1]), word[-1]))
+        vocab["".join(word)] = i
+    os.makedirs(directory, exist_ok=True)
+    paths = (os.path.join(directory, "vocab.json"), os.path.join(directory, "merges.txt"))
+    with open(paths[0], "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(paths[1], "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges) + "\n")
+    return paths
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The encoder towers' attention through K2's plain version (the
+    reference side of a check), restored on leaving."""
+    from imatch_tpu_torch.models.clip import model as clip_model
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha_plain
+
+    mha = clip_model.mha
+    clip_model.mha = lambda q, k, v, *, causal=False: flash_mha_plain(q, k, v, causal=causal)
+    try:
+        yield
+    finally:
+        clip_model.mha = mha
+
+
+@contextlib.contextmanager
+def call_counts(**modules):
+    """Forward calls of each named module, counted for a ``with`` block."""
+    counts = dict.fromkeys(modules, 0)
+    handles = []
+    for name, mod in modules.items():
+
+        def hook(_mod, _args, name=name):
+            counts[name] += 1
+
+        handles.append(mod.register_forward_pre_hook(hook))
+    try:
+        yield counts
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _timed(fn, device, iters: int = 3):
+    """(result, mean host ms of ``iters`` warm calls ending in a sync)."""
+    out = fn()
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn()
+    _sync(device)
+    return out, (time.perf_counter() - t0) * 1e3 / iters
+
+
+def md_tower_check(svc, frame, device) -> dict:
+    """The served tower (K2, compute dtype) against the same seed's
+    weights in fp32 with the plain attention, on the same device, at B=1:
+    per-row cosine of the (P, D) features."""
+    import numpy as np
+    import torch
+
+    from imatch_tpu_torch.models.moondream.model import encode_image_features, init_random
+    from imatch_tpu_torch.models.moondream.runtime import SEED
+
+    pixels = svc._preprocess(frame)
+    got = encode_image_features(svc.model, pixels)[0].float().cpu().numpy()
+    ref_model = init_random(svc.cfg, seed=SEED, device=device, dtype=torch.float32)
+    with plain_attention():
+        want = encode_image_features(ref_model, pixels)[0].cpu().numpy()
+    del ref_model
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    assert got.shape == want.shape == (svc.cfg.vision.num_patches, svc.cfg.text.hidden_size)
+    assert np.isfinite(got).all()
+    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    return {"mean_cosine": float(cos.mean()), "min_cosine": float(cos.min()), "shape": list(got.shape)}
+
+
+def md_decode_check(svc, encoded) -> dict:
+    """Cache-free against cached prefill logits, and segmented against
+    monolithic greedy decode, at the caption prompt."""
+    import torch
+
+    from imatch_tpu_torch.models.moondream.generate import prefill
+    from imatch_tpu_torch.models.moondream.runtime import CAPTION_PROMPT
+
+    feats = svc._feats(encoded)
+    tokens = svc._tokens(svc._prompt_id_list(CAPTION_PROMPT, max_new=48), 1)
+    cached, _, pos = prefill(svc.model, feats, tokens, max_new=48)
+    free, _, pos_free = prefill(svc.model, feats, tokens, use_cache=False)
+    diff = float((cached - free).abs().max())
+    mono = svc._generate(feats, tokens, 48)
+    seg = svc._generate_segmented(feats, tokens, 48, 8)
+    out = {
+        "prompt_len": pos,
+        "prefill_cached_vs_free_max_abs": diff,
+        "prefill_logit_scale": float(free.abs().max()),
+        "same_argmax": bool(torch.equal(cached.argmax(-1), free.argmax(-1))),
+        "segmented_equals_monolithic": bool(
+            torch.equal(mono.tokens, seg.tokens) and torch.equal(mono.lengths, seg.lengths)
+        ),
+        "caption_length": int(mono.lengths[0]),
+    }
+    if pos != pos_free or not out["same_argmax"] or diff > 1e-3 * out["prefill_logit_scale"]:
+        raise AssertionError(f"cache-free and cached prefill disagree: {out}")
+    if not out["segmented_equals_monolithic"]:
+        raise AssertionError(f"segmented decode differs from one loop: {out}")
+    return out
+
+
+def md_stage_times(svc, frames, device) -> dict:
+    """Each stage alone, warm, host ms of calls that end on the host."""
+    from imatch_tpu_torch.models.moondream.generate import greedy_generate, prefill
+    from imatch_tpu_torch.models.moondream.runtime import CAPTION_PROMPT
+
+    t = {}
+    enc, t["encode_b1_ms"] = _timed(lambda: svc.encode_image(frames[0]), device)
+    encs, t["encode_b16_ms"] = _timed(lambda: svc.encode_image_batch(frames[:16]), device, 2)
+    feats = svc._feats(enc)
+    tokens = svc._tokens(svc._prompt_id_list(CAPTION_PROMPT, max_new=48), 1)
+    _, t["caption_prefill_b1_ms"] = _timed(lambda: prefill(svc.model, feats, tokens, max_new=48), device)
+    state = {}
+
+    def decode():
+        logits, cache, pos = prefill(svc.model, feats, tokens, max_new=48)
+        _sync(device)
+        t0 = time.perf_counter()
+        result = greedy_generate(svc.model, logits, cache, pos, max_new=48)
+        result.tokens.cpu()
+        state["ms"] = (time.perf_counter() - t0) * 1e3
+        state["steps"] = int((result.lengths.max()))
+
+    decode()
+    decode()
+    t["caption_decode_b1_ms"] = state["ms"]
+    t["caption_decode_steps"] = state["steps"] - 1  # the first token comes from the prefill
+    t["caption_decode_ms_per_step"] = state["ms"] / max(1, state["steps"] - 1)
+    _, t["caption_b1_ms"] = _timed(lambda: svc.caption(enc), device)
+    q = "Yes or No: " + MD_FILTER
+    _, t["yes_no_b1_ms"] = _timed(lambda: svc.query(enc, q), device)
+    batch64 = (encs * 4)[:64]
+    _, t["yes_no_b64_ms"] = _timed(lambda: svc.query_yes_no_batch(batch64, q), device, 2)
+    _, t["caption_b16_ms"] = _timed(lambda: svc.caption_batch(encs[:16]), device, 1)
+    return t
+
+
+def phase_moondream(embedder, device="cuda", config=MD_CONFIG) -> dict:
+    """The Moondream captioner and the yes/no filter system at ``config``
+    (full width and depth, seeded random weights, bf16 on the card): the
+    tower against fp32 with the plain attention, the decode checks, each
+    stage timed, then the app over HTTP (IMATCH_CAPTIONER=moondream) with
+    ``embedder`` as its CLIP: uploads with captions, a filter back-filled to
+    100, filtered searches, an upload and a folder after it, DELETE, reset
+    and a restart. Returns the K2 launches of the HTTP requests. (tiny-md
+    and a small CLIP on the CPU rehearse the same control flow.)"""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from imatch_tpu_torch.models.moondream.configs import get_md_config
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
+    from imatch_tpu_torch.pipeline.captioner import load_encoded
+    from imatch_tpu_torch.pipeline.state import AppState
+    from imatch_tpu_torch.serving.app import create_app
+
+    root = os.path.join("build", "chip_smoke_md")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = get_md_config(config)
+    vocab, merges = synthetic_gpt2_vocab(
+        os.path.join(root, "vocab"), cfg.text.vocab_size, cfg.text.eos_token_id
+    )
+    env = dict(
+        IMATCH_CAPTIONER="moondream", IMATCH_MD_CONFIG=config,
+        IMATCH_MD_VOCAB=vocab, IMATCH_MD_MERGES=merges,
+    )
+    t0 = time.perf_counter()
+    with environment(**env):
+        state = AppState(root=root, embedder=embedder, device=device)
+    svc = state.captioner
+    assert type(svc).__name__ == "MoondreamTorch" and svc.cfg.name == config, svc
+    n_params = sum(p.numel() for p in svc.model.parameters())
+    log(
+        f"moondream: {config} ({n_params} parameters, {svc.dtype}) and {embedder.cfg.name} "
+        f"app ready in {time.perf_counter() - t0:.1f} s"
+    )
+    frames = [photo_frame(7000 + i, 240, 320) for i in range(MD_UPLOADS + 1 + MD_FOLDER)]
+    tower = md_tower_check(svc, frames[0], device)
+    log("moondream tower: " + json.dumps(tower))
+    if tower["mean_cosine"] < MD_MIN_COSINE[0] or tower["min_cosine"] < MD_MIN_COSINE[1]:
+        raise AssertionError(f"the bf16 K2 tower strays from the fp32 plain tower: {tower}")
+    decode = md_decode_check(svc, svc.encode_image(frames[0]))
+    log("moondream decode: " + json.dumps(decode))
+    stages = md_stage_times(svc, frames[MD_UPLOADS + 1 :], device)
+    log("moondream stages: " + json.dumps(stages))
+
+    pngs = [_png_bytes(f) for f in frames]
+    port = _free_port()
+    times = {}
+    counts_of = dict(md_vision=svc.model.vision, clip_vision=embedder.model.vision, clip_text=embedder.model.text)
+    with ServerThread(create_app(state), port), call_counts(**counts_of) as calls:
+        http = HttpClient(port)
+        _sync(device)
+        flash_mha.launches = 0
+        ids = []
+        for i in range(MD_UPLOADS):
+            status, body, ms = http.request("POST", "/api/upload", files=[("file", f"m{i}.png", pngs[i])])
+            assert status == 200 and body["success"], body
+            md = body["metadata"]
+            assert md["custom_metadata"].strip(), f"upload {i} got no caption: {md}"
+            assert load_encoded(state.encoded_dir, md["id"])["features"].shape == (
+                cfg.vision.num_patches, cfg.text.hidden_size,
+            ), md
+            ids.append(md["id"])
+            times.setdefault("upload_with_caption_ms", []).append(ms)
+        status, body, _ = http.request("POST", "/api/filters", [("filter_query", MD_FILTER)])
+        assert status == 200 and body == {"success": True, "filters": [MD_FILTER]}, body
+        t = time.perf_counter()
+        while True:
+            status, prog, _ = http.request("GET", "/api/filter-progress?filter_query=" + MD_FILTER.replace(" ", "%20"))
+            if prog.get("status") in ("completed", "error"):
+                break
+            if time.perf_counter() - t > 300:
+                raise AssertionError(f"the back-fill did not finish: {prog}")
+            time.sleep(0.01)
+        times["backfill_ms"] = (time.perf_counter() - t) * 1e3
+        want = {"status": "completed", "progress": 100, "processed": MD_UPLOADS, "total": MD_UPLOADS}
+        assert prog == want, prog
+        status, body, _ = http.request("GET", "/api/images")
+        answers = {m["id"]: json.loads(m["filter_results_json"])[MD_FILTER] for m in body["images"]}
+        assert sorted(answers) == sorted(ids) and set(answers.values()) <= {"Yes", "No"}, answers
+        yes = sorted(i for i, a in answers.items() if a == "Yes")
+        status, body, times["filtered_search_ms"] = http.request(
+            "POST", "/api/search/text", [("query", ""), ("filters", MD_FILTER), ("limit", "100")]
+        )
+        assert status == 200 and sorted(r["id"] for r in body["results"]) == yes, (body, yes)
+        status, body, times["filtered_text_search_ms"] = http.request(
+            "POST", "/api/search/text", [("query", TEXT_QUERY), ("filters", MD_FILTER), ("limit", "100")]
+        )
+        assert status == 200 and sorted(r["id"] for r in body["results"]) == yes, (body, yes)
+        status, body, times["upload_after_filter_ms"] = http.request(
+            "POST", "/api/upload", files=[("file", "late.png", pngs[MD_UPLOADS])]
+        )
+        assert status == 200 and body["metadata"]["custom_metadata"].strip(), body
+        late = json.loads(body["metadata"]["filter_results_json"])
+        assert set(late) == {MD_FILTER} and late[MD_FILTER] in ("Yes", "No"), late
+        folder = [("files", f"f{i}.png", pngs[MD_UPLOADS + 1 + i]) for i in range(MD_FOLDER)]
+        status, body, times["folder_ms"] = http.request("POST", "/api/upload-folder", files=folder)
+        assert status == 200 and body["successful"] == MD_FOLDER, body
+        status, body, _ = http.request("GET", "/api/images")
+        assert len(body["images"]) == MD_UPLOADS + 1 + MD_FOLDER, body
+        for m in body["images"]:
+            assert m["custom_metadata"].strip(), f"no caption: {m}"
+            assert json.loads(m["filter_results_json"])[MD_FILTER] in ("Yes", "No"), m
+        _sync(device)
+        launches = {"K2": flash_mha.launches}
+        counted = dict(calls)
+        status, body, _ = http.request("DELETE", "/api/filters/" + MD_FILTER.replace(" ", "%20"))
+        assert status == 200 and body == {"success": True, "filters": []}, body
+        status, body, _ = http.request("DELETE", "/api/filters/" + MD_FILTER.replace(" ", "%20"))
+        assert status == 404, body
+        status, body, times["reset_ms"] = http.request("POST", "/api/reset")
+        assert status == 200 and body == {"success": True}, body
+        status, body, _ = http.request("GET", "/api/filters")
+        assert body == {"filters": []}, body
+        status, body, _ = http.request("POST", "/api/filters", [("filter_query", MD_FILTER_AFTER_RESET)])
+        assert status == 200, body
+        status, health, _ = http.request("GET", "/api/health")
+        assert health["images"] == 0 and health["captioner"] is True, health
+
+    # a restart on the same directory: the saved filter is there
+    restarted = AppState(root=root, embedder=embedder, captioner=svc, device=device)
+    with ServerThread(create_app(restarted), port := _free_port()):
+        http = HttpClient(port)
+        status, body, _ = http.request("GET", "/api/filters")
+        assert body == {"filters": [MD_FILTER_AFTER_RESET]}, body
+        status, health, _ = http.request("GET", "/api/health")
+        assert health["images"] == 0 and health["captioner"] is True, health
+
+    # encodes: each upload and the late one, the folder's chunks of 16 + 4
+    md_encodes = MD_UPLOADS + 1 + -(-MD_FOLDER // 16)
+    expected_calls = {"md_vision": md_encodes}
+    expected = {
+        "K2": cfg.vision.num_layers * md_encodes
+        + embedder.cfg.vision.num_layers * counted["clip_vision"]
+        + embedder.cfg.text.num_layers * counted["clip_text"]
+    }
+    if torch.device(device).type != "cuda":  # the CPU runs the plain versions
+        expected = {"K2": 0}
+    log(
+        "moondream slice: "
+        + json.dumps(
+            {
+                "config": config,
+                "clip": embedder.cfg.name,
+                **times,
+                "filter_answers": answers,
+                "tower_calls": counted,
+                "launches": launches,
+                "expected_launches": expected,
+            }
+        )
+    )
+    del state, restarted
+    gc.collect()
+    shutil.rmtree(root, ignore_errors=True)
+    if counted["md_vision"] != expected_calls["md_vision"]:
+        raise AssertionError(f"Moondream encodes {counted} != what the requests imply {expected_calls}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != what the requests imply {expected}")
+    return {"launches": launches["K2"], "tower": tower, "decode": decode, "stages": stages, "http": times}
+
+
 def phase_reference() -> None:
     """vit-b32 (depth cut to 2 layers a tower) on the card, bf16 and fp32,
     against the same weights in fp32 on the CPU: per-row cosine of the
@@ -1859,7 +2222,9 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
     those of each path's HTTP requests: slices 1-3 for K1-K4 (slice 1's
     five searches, one of them the first after the uploads), the two experiment
     scripts for K5, K6 and the tensor-core K1 (exp_pallas_search's Q = 8
-    row-major phase)."""
+    row-major phase); and K2 at the Moondream vision tower's shape, with
+    the Moondream slice's launches (phase 8b: its encodes' and its CLIP
+    towers')."""
 
     def pick(table, **want):
         return next(r for r in table if all(r[k] == v for k, v in want.items()))
@@ -1868,6 +2233,7 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
     k1q16 = pick(k1_rows, q=16, dtype="bfloat16", tile_n=512)
     k1i8 = pick(k1i8_rows, q=1)
     k2 = pick(k2_rows, shape=[1, 16, 257, 64], dtype="bfloat16")
+    k2_md = pick(k2_rows, shape=[1, 16, 729, 72], dtype="bfloat16")
     k5 = pick(k5_rows, tile_n=2048)
     k6 = pick(k6_rows, dp=640, tile_n=2048)
     entries = []
@@ -1905,6 +2271,15 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
             "imatch_tpu/ops/pallas/flash_attention.py:26",
             "K2",
             "(1, 16, 257, 64) bf16, non-causal",
+        ),
+        (
+            "K2 flash_attention, Moondream vision tower",
+            k2_md,
+            "imatch_tpu_torch/csrc/flash_attention.cu",
+            "imatch_tpu/ops/pallas/flash_attention.py:26",
+            "K2_md",
+            "(1, 16, 729, 72) bf16, non-causal; launches: the Moondream slice's requests "
+            "(27 a vision encode)",
         ),
         (
             "K3 quant_rows",
@@ -1957,7 +2332,7 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
         # where it launches more slowly than the card runs (K2 at B = 1)
         entry["device_ms"] = row["device_ms"]
         entry["device_pct_of_bound"] = row["device_pct_of_bound"]
-        if key == "K2":
+        if key in ("K2", "K2_md"):
             entry["library_device_ms"] = row["library_device_ms"]
         if key in ("K3", "K4"):
             entry["library_note"] = "no single PyTorch call computes a per-row int8 quantize"
@@ -1982,13 +2357,17 @@ def main() -> int:
     k34_rows = phase_k34()
     k5_rows = phase_k5()
     k6_rows = phase_k6()
-    launches, embedder = phase_slice()
-    gc.collect()  # the first slice's app and 2^20-row store
-    torch.cuda.empty_cache()
-    w8a8_launches, w8a8 = phase_w8a8()
-    launches.update(K3=w8a8_launches["K3"], K4=w8a8_launches["K4"])
-    tiers = phase_tiers(embedder)
+    with environment(IMATCH_CAPTIONER="null"):  # the CLIP slices run without a captioner
+        launches, embedder = phase_slice()
+        gc.collect()  # the first slice's app and 2^20-row store
+        torch.cuda.empty_cache()
+        w8a8_launches, w8a8 = phase_w8a8()
+        launches.update(K3=w8a8_launches["K3"], K4=w8a8_launches["K4"])
+        tiers = phase_tiers(embedder)
     launches["K1_int8"] = sum(c["K1_int8"] for c in tiers.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["K2_md"] = phase_moondream(embedder)["launches"]
     del embedder
     gc.collect()
     torch.cuda.empty_cache()

@@ -16,11 +16,14 @@ Env config (the same names as run.py):
   IMATCH_JOURNAL_FSYNC    0 skips the fsync after each journaled batch
                           (default 1)
   IMATCH_EMBED_QUANT      int8 for the W8A8 image tower (default unset)
+  IMATCH_CAPTIONER        auto (default) | moondream | cloud | null
+  IMATCH_MD_CONFIG        tiny-md (default) | moondream2 (the captioner)
+  IMATCH_MD_CHECKPOINT    a moondream2 checkpoint for real weights
   IMATCH_DEVICE           cuda (default) | cpu
 
 On ``cuda`` the CUDA kernels are built (nvcc, ops/kernels/_build.py) and
-the CLIP weights loaded before the server starts listening, so the first
-request pays neither. The store loads from IMATCH_DATA_DIR at start; a
+the CLIP and captioner weights loaded before the server starts listening,
+so the first request pays neither. The store loads from IMATCH_DATA_DIR at start; a
 restart with the same directory serves the same images. SIGTERM and
 SIGINT compact the journal into a snapshot before exit (status 0, or 1 if
 the snapshot failed).

@@ -45,6 +45,8 @@ def _act(x: torch.Tensor, name: str) -> torch.Tensor:
         return x * torch.sigmoid(1.702 * x)
     if name == "gelu":
         return F.gelu(x)
+    if name == "gelu_tanh":  # the Moondream vision tower's (models/moondream)
+        return F.gelu(x, approximate="tanh")
     raise ValueError(f"unknown activation {name}")
 
 

@@ -49,16 +49,11 @@ from imatch_tpu_torch.ops.phash import (
 from imatch_tpu_torch.ops.preprocess import preprocess_core, preprocess_images
 from imatch_tpu_torch.ops.resize import resample_matrix, resize_crop_matrices
 from imatch_tpu_torch.ops.tokenizer import default_tokenizer
+from imatch_tpu_torch.utils.batching import pow2_bucket
 
 logger = logging.getLogger("imatch.embedder")
 
 SEED = 0  # the random init's, so embeddings are stable across restarts
-
-
-def pow2_bucket(n: int, cap: int) -> int:
-    """Padded size of an ``n``-row chunk: the next power of two, at most
-    ``cap`` (a few stable shapes instead of one per batch size)."""
-    return min(cap, 1 << max(0, n - 1).bit_length())
 
 
 class ClipEmbedder:

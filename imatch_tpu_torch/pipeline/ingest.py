@@ -4,24 +4,29 @@ batch.
 Counterparts of ``process_image`` and ``process_batch`` in
 ``imatch_tpu/pipeline/ingest.py``:
 
-- ``process_image``: pHash id -> duplicate check -> save the processed
-  PNG -> description fallback -> CLIP embedding -> ``store.add``,
-  returning ``(metadata, is_new_upload)``; a duplicate returns the stored
-  metadata.
+- ``process_image``: pHash id -> duplicate check -> caption + vision
+  encoding (cached to ``static/encoded/<id>.npz``) -> save the processed
+  PNG -> description fallback -> caption into ``custom_metadata`` -> CLIP
+  embedding -> the saved filters' answers -> ``store.add``, returning
+  ``(metadata, is_new_upload)``; a duplicate returns the stored metadata.
 - ``process_batch``: bulk ingest through the embedder's fused stream (one
   device upload per geometry chunk gives the pHash ids and the
   embeddings), a batched duplicate check per streamed chunk, saves on a
-  host pool overlapping the device work, one ``store.add``, per-file
-  results.
+  host pool overlapping the device work, batched captions and filter
+  answers (``encode_image_batch``, ``caption_batch``,
+  ``query_yes_no_batch``), one ``store.add``, per-file results.
 
-With the ``NullCaptioner`` and no segmenter of the port there is no
-caption, no background removal and no filter pass.
+A caption or filter failure is logged and costs the image its caption or
+answers, not its upload, as in the JAX package. With the
+``NullCaptioner`` there is no caption and no filter pass; the port has no
+segmenter, so no background removal.
 """
 
 from __future__ import annotations
 
 import datetime
 import io
+import json
 import logging
 import os
 import threading
@@ -32,7 +37,10 @@ import numpy as np
 from PIL import Image
 
 from imatch_tpu_torch.ops.phash import image_id as phash_image_id
+from imatch_tpu_torch.pipeline.captioner import save_encoded
+from imatch_tpu_torch.pipeline.filters import format_filter_query
 from imatch_tpu_torch.pipeline.state import AppState
+from imatch_tpu_torch.utils.batching import to_rgb
 
 logger = logging.getLogger("imatch.ingest")
 
@@ -65,21 +73,42 @@ def _save_pool() -> ThreadPoolExecutor:
         return _SAVE_POOL
 
 
-def to_rgb(arr: np.ndarray) -> np.ndarray:
-    """Any decoded frame -> HWC RGB: grayscale and single-channel frames
-    stack to three channels, RGBA drops alpha."""
-    a = np.asarray(arr)
-    if a.ndim == 2:
-        a = np.stack([a] * 3, axis=-1)
-    elif a.ndim == 3 and a.shape[-1] == 1:
-        a = np.repeat(a, 3, axis=-1)
-    if a.shape[-1] == 4:
-        a = a[..., :3]
-    return a
-
-
 def _now_iso() -> str:
     return datetime.datetime.now().isoformat()
+
+
+def _caption_and_encode(state: AppState, image_np: np.ndarray):
+    """The reference app's generate_image_caption: (caption, encoding),
+    or (None, None) without a captioner or on failure."""
+    cap = state.captioner
+    if not getattr(cap, "available", False):
+        return None, None
+    try:
+        encoded = cap.encode_image(image_np)
+        caption = cap.caption(encoded)["caption"]
+        return caption, encoded
+    except Exception as e:
+        logger.exception("error generating caption: %s", e)
+        return None, None
+
+
+def _apply_existing_filters(state: AppState, encoded) -> Optional[Dict[str, str]]:
+    """Every saved filter's answer for a new image; "error" where one
+    failed."""
+    if encoded is None or not getattr(state.captioner, "available", False):
+        return None
+    filters = state.load_filters()
+    if not filters:
+        return None
+    results: Dict[str, str] = {}
+    for fq in filters:
+        try:
+            ans = state.captioner.query(encoded, format_filter_query(fq))["answer"]
+            results[fq] = ans.strip() if isinstance(ans, str) else ans
+        except Exception as e:
+            logger.exception("error applying filter %r: %s", fq, e)
+            results[fq] = "error"
+    return results
 
 
 def process_image(
@@ -99,11 +128,21 @@ def process_image(
         return existing["metadatas"][0], False
 
     image_np = np.asarray(image)
+    caption, encoded = _caption_and_encode(state, image_np)
+    if encoded is not None:
+        save_encoded(state.encoded_dir, img_id, encoded)
+
     processed_path = os.path.join(state.processed_dir, f"{img_id}.png")
     Image.fromarray(image_np).save(processed_path)
 
     if not description:
         description = os.path.splitext(filename)[0]
+
+    processed_custom = custom_metadata or ""
+    if caption:
+        if processed_custom:
+            processed_custom += "\n\n"
+        processed_custom += caption
 
     embedding = state.get_embedder().embed_image(image_np)
 
@@ -112,12 +151,15 @@ def process_image(
         "id": img_id,
         "filename": filename,
         "description": description,
-        "custom_metadata": custom_metadata or "",
+        "custom_metadata": processed_custom,
         "url": url,
         "thumbnail_url": url,
         "processed_url": processed_path,
         "created_at": _now_iso(),
     }
+    filter_results = _apply_existing_filters(state, encoded)
+    if filter_results:
+        metadata["filter_results_json"] = json.dumps(filter_results)
     with state.lock:
         try:
             state.store.add(
@@ -133,6 +175,50 @@ def process_image(
             return existing["metadatas"][0], False
         state.image_metadata[img_id] = metadata
     return metadata, True
+
+
+def _caption_and_filter_batch(state: AppState, fresh, arrays, ids):
+    """Captions and saved-filter answers for a batch's fresh files, batched
+    on the device where the captioner can (MoondreamTorch: chunked vision
+    encodes, a shared decode loop a chunk, one yes/no prefill a filter),
+    else image by image. Returns ({index: caption}, {index: {filter:
+    answer}}); a failure is logged and leaves both empty."""
+    captions: Dict[int, str] = {}
+    filter_results: Dict[int, Dict[str, str]] = {}
+    cap = state.captioner
+    if not getattr(cap, "available", False):
+        return captions, filter_results
+    try:
+        if hasattr(cap, "encode_image_batch"):
+            encs = cap.encode_image_batch([arrays[i] for i in fresh])
+            caps = (
+                cap.caption_batch(encs)
+                if hasattr(cap, "caption_batch")
+                else [cap.caption(e)["caption"] for e in encs]
+            )
+            for i, enc, text in zip(fresh, encs, caps):
+                save_encoded(state.encoded_dir, ids[i], enc)
+                if text:
+                    captions[i] = text
+            saved_filters = state.load_filters()
+            if saved_filters and hasattr(cap, "query_yes_no_batch"):
+                for fq in saved_filters:
+                    answers = cap.query_yes_no_batch(encs, format_filter_query(fq))
+                    for i, yes in zip(fresh, answers):
+                        filter_results.setdefault(i, {})[fq] = "Yes" if yes else "No"
+        else:
+            for i in fresh:
+                caption, encoded = _caption_and_encode(state, arrays[i])
+                if encoded is not None:
+                    save_encoded(state.encoded_dir, ids[i], encoded)
+                    fr = _apply_existing_filters(state, encoded)
+                    if fr:
+                        filter_results[i] = fr
+                if caption:
+                    captions[i] = caption
+    except Exception as e:
+        logger.exception("batched caption/filter error: %s", e)
+    return captions, filter_results
 
 
 # formats browsers render natively: safe to store the original bytes
@@ -316,6 +402,7 @@ def process_batch(
     _dup_check([i for i in range(n) if not checked[i] and results[i] is None])
     if not fresh:
         return results
+    captions, filter_results = _caption_and_filter_batch(state, fresh, arrays, ids)
 
     missing = [i for i in fresh if i not in emb_by_idx]
     if missing:
@@ -359,12 +446,14 @@ def process_batch(
             "id": img_id,
             "filename": name,
             "description": description,
-            "custom_metadata": "",
+            "custom_metadata": captions.get(i, ""),
             "url": url,
             "thumbnail_url": url,
             "processed_url": os.path.join(state.processed_dir, f"{img_id}{save_ext[i]}"),
             "created_at": _now_iso(),
         }
+        if i in filter_results:
+            metadata["filter_results_json"] = json.dumps(filter_results[i])
         add_ids.append(img_id)
         add_embs.append(emb_by_idx[i])
         add_mds.append(metadata)

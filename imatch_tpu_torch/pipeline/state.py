@@ -1,13 +1,13 @@
 """Application state — the reference app's module globals, made explicit.
 
 Counterpart of ``imatch_tpu/pipeline/state.py`` ``AppState``:
-directories, the lazily built embedder, the store (loaded from the
+directories, the lazily built embedder, the captioner (``get_captioner``
+on the state's device unless one is passed), the store (loaded from the
 snapshot and journal under ``data_dir`` unless ``autoload=False``) and
-the image metadata mirror hydrated from it, with no segmenter and the
-``NullCaptioner``. ``snapshot`` is the durability point after an upload
-and ``reset`` empties the app. Filters (``filters.json``, JAX
-``load_filters``/``save_filters``) come with the captioner (ROADMAP.md
-Queue 1 step 10).
+the image metadata mirror hydrated from it, the saved filters
+(``filters.json``) and the back-fill progress dict, with no segmenter.
+``snapshot`` is the durability point after an upload and ``reset``
+empties the app, its filters included.
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ from typing import Dict, Optional
 
 from imatch_tpu_torch.device import DeviceLike, resolve_device
 from imatch_tpu_torch.index.store import VectorStore
-from imatch_tpu_torch.pipeline.captioner import NullCaptioner
+from imatch_tpu_torch.pipeline import filters as filters_mod
+from imatch_tpu_torch.pipeline.captioner import get_captioner
 from imatch_tpu_torch.pipeline.embedder import ClipEmbedder
 
 logger = logging.getLogger("imatch.state")
@@ -42,13 +43,15 @@ class AppState:
         self.processed_dir = os.path.join(self.static_dir, "processed")
         self.encoded_dir = os.path.join(self.static_dir, "encoded")
         self.data_dir = os.path.join(self.root, os.environ.get("IMATCH_DATA_DIR", "index_data"))
+        self.filters_file = os.path.join(self.root, "filters.json")
         for d in (self.uploads_dir, self.processed_dir, self.encoded_dir, self.data_dir):
             os.makedirs(d, exist_ok=True)
         self.embedder = embedder
-        self.captioner = captioner if captioner is not None else NullCaptioner()
+        self.captioner = captioner if captioner is not None else get_captioner(self.device)
         self.segmenter = None
         self.lock = threading.RLock()
         self._embedder_lock = threading.Lock()
+        self.filter_progress: Dict[str, dict] = {}
         self.image_metadata: Dict[str, dict] = {}
         self.store = (
             VectorStore.load(self.data_dir, device=self.device)
@@ -76,6 +79,14 @@ class AppState:
         if got["ids"]:
             logger.info("hydrated %d image records", len(got["ids"]))
 
+    # -- filters ------------------------------------------------------------
+
+    def load_filters(self):
+        return filters_mod.load_filters(self.filters_file)
+
+    def save_filters(self, filters):
+        filters_mod.save_filters(self.filters_file, filters)
+
     # -- persistence --------------------------------------------------------
 
     def snapshot(self, force: bool = False):
@@ -87,8 +98,9 @@ class AppState:
     # -- reset --------------------------------------------------------------
 
     def reset(self):
-        """reset_system: empty the store and the mirror, wipe the image
-        directories, snapshot."""
+        """reset_system: empty the store, the mirror, the back-fill
+        progress and the saved filters, wipe the image directories,
+        snapshot."""
         with self.lock:
             # logical state FIRST: if the rmtree below fails part way (an
             # in-flight ingest writes files outside state.lock), the API
@@ -97,6 +109,8 @@ class AppState:
             if all_ids:
                 self.store.delete(all_ids)
             self.image_metadata.clear()
+            self.filter_progress.clear()
+            self.save_filters([])
             for d in (self.processed_dir, self.encoded_dir, self.uploads_dir):
                 if os.path.isdir(d):
                     # racing file creation must not abort the reset: any

@@ -4,11 +4,15 @@ ported so far.
 Counterpart of ``imatch_tpu/serving/app.py`` ``create_app`` for
 ``/api/upload``, ``/api/upload-folder``, ``/api/search/text`` (POST and
 GET), ``/api/search/image``, ``/api/search/multimodal``, ``/api/images``,
-``/api/image/{id}``, ``PUT /api/metadata/{id}``, ``/api/reset`` and
-``/api/health``, with the same responses (ids, 409 on a duplicate, 422 for
-string fields sent as file parts, ``limit=0`` -> up to 1000, the folder's
-per-file statuses and counts). The other routes of the JAX app answer 501
-and name the ROADMAP.md item that will bring them.
+``/api/image/{id}``, ``PUT /api/metadata/{id}``, the filter routes
+(``GET``/``POST /api/filters``, ``POST /api/filters/batch``, ``DELETE
+/api/filters/{filter_query}``, ``GET /api/filter-progress``; a new filter
+is back-filled over every stored image in a background task),
+``/api/reset`` and ``/api/health``, with the same responses (ids, 409 on a
+duplicate, 422 for string fields sent as file parts, ``limit=0`` -> up to
+1000, the folder's per-file statuses and counts, the progress records).
+The other routes of the JAX app answer 501 and name the ROADMAP.md item
+that will bring them.
 
 Uploads decode with PIL, a folder's files on a thread pool: the JAX app's
 loader takes this path where its C++ decoder is not built, and both give
@@ -21,7 +25,6 @@ it once it has grown.
 from __future__ import annotations
 
 import io
-import json
 import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -32,6 +35,8 @@ from PIL import Image
 
 from imatch_tpu_torch.device import DeviceLike
 from imatch_tpu_torch.pipeline import search as search_mod
+from imatch_tpu_torch.pipeline.backfill import process_filter_on_all_images
+from imatch_tpu_torch.pipeline.filters import passes_filters
 from imatch_tpu_torch.pipeline.ingest import process_batch, process_image
 from imatch_tpu_torch.pipeline.state import AppState
 from imatch_tpu_torch.serving.asgi import App, JSONResponse, UploadFile
@@ -49,11 +54,6 @@ CORS_ORIGINS = [
 _LATER_ROUTES = [
     ("POST", "/api/search/batch", "Queue 1 step 7 (the remaining routes)"),
     ("POST", "/api/search/image-batch", "Queue 1 step 7 (the remaining routes)"),
-    ("GET", "/api/filters", "Queue 1 step 10 (Moondream captioner and filters)"),
-    ("POST", "/api/filters", "Queue 1 step 10 (Moondream captioner and filters)"),
-    ("POST", "/api/filters/batch", "Queue 1 step 10 (Moondream captioner and filters)"),
-    ("DELETE", "/api/filters/{filter_query}", "Queue 1 step 10 (Moondream captioner and filters)"),
-    ("GET", "/api/filter-progress", "Queue 1 step 10 (Moondream captioner and filters)"),
     ("POST", "/search", "Queue 1 step 7 (the remaining routes)"),
     ("POST", "/upload-samples", "Queue 1 step 7 (the remaining routes)"),
     ("GET", "/api/metrics", "Queue 1 step 13 (operations surface)"),
@@ -111,27 +111,12 @@ def _parse_bool(v, default=False) -> bool:
     return str(v).strip().lower() in ("true", "1", "yes", "on")
 
 
-def _passes_filters(metadata: dict, selected: List[str]) -> bool:
-    """AND semantics: every selected filter answered 'yes'."""
-    raw = metadata.get("filter_results_json")
-    if not raw:
-        return False
-    try:
-        results = json.loads(raw)
-    except ValueError:
-        return False
-    for f in selected:
-        ans = results.get(f)
-        if not isinstance(ans, str) or ans.strip().lower() != "yes":
-            return False
-    return True
-
-
 def apply_search_filters(results: List[dict], filters: List[str]) -> List[dict]:
-    """Route-level AND post-pass over search results."""
+    """Route-level AND post-pass over search results
+    (pipeline/filters.py ``passes_filters``)."""
     if not filters:
         return results
-    return [r for r in results if _passes_filters(r, filters)]
+    return [r for r in results if passes_filters(r, filters)]
 
 
 def _later(item: str):
@@ -341,6 +326,70 @@ def create_app(
             state.image_metadata[image_id] = metadata
         state.snapshot()
         return {"success": True, "metadata": metadata}
+
+    # -- filters -------------------------------------------------------------
+
+    @app.get("/api/filters")
+    def get_filters(req):
+        return {"filters": state.load_filters()}
+
+    @app.post("/api/filters")
+    def add_filter(req):
+        form = req.form()
+        try:
+            filter_query = _form_str(form, "filter_query")
+        except _FieldTypeError as e:
+            return JSONResponse({"success": False, "error": str(e)}, 422)
+        if not filter_query:
+            return JSONResponse({"success": False, "error": "filter_query required"}, 422)
+        # handlers run on a thread pool: the load -> append -> save must be
+        # atomic, or one of two simultaneous adds is lost
+        with state.lock:
+            filters = state.load_filters()
+            if filter_query in filters:
+                return {"success": True, "message": "Filter already exists", "filters": filters}
+            filters.append(filter_query)
+            state.save_filters(filters)
+        app.add_background_task(process_filter_on_all_images, state, filter_query)
+        return {"success": True, "filters": filters}
+
+    @app.post("/api/filters/batch")
+    def add_filters_batch(req):
+        """Comma-separated batch add."""
+        form = req.form()
+        try:
+            raw = _form_str(form, "filter_queries", "")
+        except _FieldTypeError as e:
+            return JSONResponse({"success": False, "error": str(e)}, 422)
+        queries = [q.strip() for q in raw.split(",") if q.strip()]
+        with state.lock:
+            filters = state.load_filters()
+            added = []
+            for q in queries:
+                if q not in filters:
+                    filters.append(q)
+                    added.append(q)
+            state.save_filters(filters)
+        for q in added:
+            app.add_background_task(process_filter_on_all_images, state, q)
+        return {"success": True, "added": added, "filters": filters}
+
+    @app.delete("/api/filters/{filter_query}")
+    def delete_filter(req, filter_query):
+        with state.lock:
+            filters = state.load_filters()
+            if filter_query in filters:
+                filters.remove(filter_query)
+                state.save_filters(filters)
+                return {"success": True, "filters": filters}
+        return JSONResponse({"success": False, "error": "Filter not found"}, 404)
+
+    @app.get("/api/filter-progress")
+    def filter_progress(req):
+        q = req.query_param("filter_query")
+        if q not in state.filter_progress:
+            return {"status": "not_found"}
+        return state.filter_progress[q]
 
     @app.post("/api/reset")
     def reset(req):

@@ -142,6 +142,60 @@ def test_flash_attention_reads_strided_heads(cuda, b, s, h, dh, causal):
     _assert_bf16_close(out, ref)
 
 
+@pytest.mark.parametrize("layout", ["contiguous", "fused_qkv"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape,kv_len",
+    [
+        ((1, 16, 729, 72), None),  # the Moondream vision tower, one upload
+        ((16, 16, 729, 72), None),  # a folder's or a back-fill's chunk of 16
+        ((2, 16, 729, 72), 500),  # keys past kv_len masked
+    ],
+)
+def test_flash_attention_moondream_vision_shape(cuda, dtype, shape, kv_len, layout):
+    """K2 where the JAX package runs its Pallas kernel: S = 729 (11 full
+    64-key tiles and one of 25 keys; 45 full 16-row warps and one of 9
+    rows), Dh = 72 (four k16 steps and a zero-padded half), B*H up to 256
+    heads; contiguous or the tower's (B, S, 3, H, Dh) fused-QKV views."""
+    b, h, s, dh = shape
+    if layout == "contiguous":
+        q, k, v = _qkv(shape, dtype, cuda, seed=s + b)
+    else:
+        g = torch.Generator(device=cuda).manual_seed(s + b)
+        qkv = torch.randn((b, s, 3, h, dh), generator=g, device=cuda).to(dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    before = flash_mha.launches
+    out = flash_mha(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert flash_mha.launches == before + 1 and out.shape == shape
+    ref = flash_mha_plain(q.float(), k.float(), v.float(), kv_len=kv_len)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    else:
+        _assert_bf16_close(out, ref)
+
+
+@pytest.mark.parametrize("sq,s", [(5, 40), (1, 896), (771, 771)])
+def test_moondream_decoder_attention_bf16_matches_fp32(cuda, sq, s):
+    """The decoder's plain attention (models/moondream/model.py
+    ``_attend_cached``) in bf16 on the card, whose two products run on the
+    tensor cores with fp32 results, against its fp32 math on the CPU on the
+    same bf16 values: a causal prefill block, one decode token over a
+    896-slot cache, the caption prefill's 771 tokens."""
+    from imatch_tpu_torch.models.moondream.model import _attend_cached
+
+    g = torch.Generator(device=cuda).manual_seed(sq + s)
+    q = torch.randn((2, 32, sq, 64), generator=g, device=cuda).bfloat16()
+    ck, cv = (torch.randn((2, 32, s, 64), generator=g, device=cuda).bfloat16() for _ in range(2))
+    qpos = torch.arange(s - sq, s, device=cuda)
+    hidden = torch.arange(s, device=cuda)[None, :] > qpos[:, None] if sq > 1 else None
+    got = _attend_cached(q, ck, cv, hidden)
+    want = _attend_cached(
+        q.cpu().float(), ck.cpu().float(), cv.cpu().float(), None if hidden is None else hidden.cpu()
+    )
+    _assert_bf16_close(got, want.to(cuda))
+
+
 def test_flash_attention_raises_instead_of_falling_back(cuda):
     q, k, v = _qkv((1, 2, 16, 12), torch.float32, cuda)  # head dim 12
     before = flash_mha.launches
