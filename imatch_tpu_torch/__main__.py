@@ -16,6 +16,14 @@ Env config (the same names as run.py):
   IMATCH_JOURNAL_FSYNC    0 skips the fsync after each journaled batch
                           (default 1)
   IMATCH_EMBED_QUANT      int8 for the W8A8 image tower (default unset)
+  IMATCH_WARMUP           0 skips the background warmup at start (default 1)
+  IMATCH_COALESCE         1 lets concurrent single searches share one engine
+                          call, on the card (default off)
+  IMATCH_DEVICE_INGEST    1 keeps a folder's embeddings on the card into the
+                          index (default off; IMATCH_DEVICE_INGEST_FLUSH=0
+                          defers the mirror and journal to the next drain)
+  IMATCH_SAMPLES_DIR      the directory /upload-samples ingests (default
+                          images/ under the root)
   IMATCH_CAPTIONER        auto (default) | moondream | cloud | null
   IMATCH_MD_CONFIG        tiny-md (default) | moondream2 (the captioner)
   IMATCH_MD_CHECKPOINT    a moondream2 checkpoint for real weights

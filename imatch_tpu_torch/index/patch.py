@@ -40,6 +40,14 @@ stream, so an in-place patch never overwrites rows a launched K1 is
 still reading. Each tensor the state holds is patched on its own:
 ``scoring`` and ``exact`` are separate tensors even in fp32.
 
+Rows may be numpy (the host path) or a tensor already on the card (a
+device-resident add, ``VectorStore._add_device``): the device engines
+then scatter them device to device with no host round trip, and the int8
+tier quantizes them on the card with ``search._int8_rows``, the same ops
+on the same device as the full build, so the codes and scales equal the
+build's bit for bit. ``tilemax-host`` brings them to the host first (JAX
+``_rows_f32``), for its numpy quantization and host rows.
+
 JAX pads each batch to a power of two (``_bucket``, ``_pad_idx``,
 ``_pad_rows``) for its jit cache. The port has no jit cache and patches
 the batch as it comes.
@@ -70,12 +78,26 @@ def _write(t: torch.Tensor, idx: torch.Tensor, values: torch.Tensor, in_place: b
     return t.index_put_((idx,), values)
 
 
-def _dense_rows(state: DeviceCorpus, slots: np.ndarray, rows: np.ndarray, in_place: bool) -> DeviceCorpus:
+def _rows_f32(rows, dev: torch.device) -> torch.Tensor:
+    """(b, D) fp32 rows on ``dev``: a tensor stays where it is when it is
+    already there (no host round trip), numpy rows are uploaded."""
+    if isinstance(rows, torch.Tensor):
+        return rows.detach().to(device=dev, dtype=torch.float32).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(rows, np.float32)).to(dev)
+
+
+def _host_rows(rows) -> np.ndarray:
+    if isinstance(rows, torch.Tensor):
+        return rows.detach().to(device="cpu", dtype=torch.float32).numpy()
+    return np.ascontiguousarray(rows, np.float32)
+
+
+def _dense_rows(state: DeviceCorpus, slots: np.ndarray, rows, in_place: bool) -> DeviceCorpus:
     """Rows written at ``slots`` of a ``DeviceCorpus``, made as the full
     build makes them, and marked valid."""
     dev = state.exact.device
     idx = torch.from_numpy(slots).to(dev)
-    rows32 = torch.from_numpy(np.ascontiguousarray(rows, np.float32)).to(dev)
+    rows32 = _rows_f32(rows, dev)
     pad = (0, state.scoring.shape[1] - rows32.shape[1])
     scale = state.scale
     if state.scoring.dtype == torch.int8:
@@ -93,13 +115,13 @@ def _dense_rows(state: DeviceCorpus, slots: np.ndarray, rows: np.ndarray, in_pla
 
 
 def _host_tier_append(
-    state: HostRescoreCorpus, slots: np.ndarray, rows: np.ndarray, in_place: bool
+    state: HostRescoreCorpus, slots: np.ndarray, rows, in_place: bool
 ) -> HostRescoreCorpus:
     """tilemax-host append: numpy quantization identical to
     ``prepare_host_rescore_corpus``, a device scatter of codes, scales and
     validity, the host fp32 rows written in place (unreachable from old
     states), and a copy-on-write host validity."""
-    rows = np.ascontiguousarray(rows, np.float32)
+    rows = _host_rows(rows)
     amax = np.abs(rows).max(axis=1)
     sc = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
     q = np.clip(np.round(rows / sc[:, None]), -127, 127).astype(np.int8)
@@ -119,10 +141,11 @@ def _host_tier_append(
 # -- public API (the store calls these under its lock) --------------------------
 
 
-def append_rows(dc, slots: np.ndarray, rows: np.ndarray, *, in_place: bool) -> Optional[Tuple[str, tuple]]:
+def append_rows(dc, slots: np.ndarray, rows, *, in_place: bool) -> Optional[Tuple[str, tuple]]:
     """Patch freshly appended rows into a prepared state. Returns
     ``(tag, new_state)`` or None to ask for a rebuild. ``slots`` are the
-    store's slot indices (int64), ``rows`` the (b, D) fp32 embeddings."""
+    store's slot indices (int64), ``rows`` the (b, D) fp32 embeddings,
+    numpy or a tensor (on the card: scattered device to device)."""
     tag, state = dc
     if tag in ("tilemax", "pallas"):
         return tag, _dense_rows(state, slots, rows, in_place)

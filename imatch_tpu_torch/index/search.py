@@ -149,7 +149,14 @@ def _top_tiles(tmax: torch.Tensor, kt: int) -> torch.Tensor:
 
 
 def _rescore(q32, tmax, dc: DeviceCorpus, k: int):
-    """Phase 2: candidate tiles from the tile maxima, exact fp32 rescore."""
+    """Phase 2: candidate tiles from the tile maxima, exact fp32 rescore.
+    The candidate rows of as many queries as fit in ``_RESCORE_BYTES`` are
+    gathered and scored by one ``torch.bmm`` (at k = 1000 a query gathers
+    about half a million rows, 1.6 GB at D = 768: one query a step). On
+    the card a query's ids and scores do not depend on the queries beside
+    it (bit for bit against the query alone and against a per-query
+    ``mv`` at Q = 16 and 256, imatch_tpu_torch/scripts/rescore_ab.py); on
+    the CPU the last bit of a score may."""
     nq, n_tiles = tmax.shape
     tile_n = dc.tile_n
     d = dc.exact.shape[1]
@@ -194,6 +201,65 @@ def tilemax_topk(
         qs[:, :d] = q32
         tmax = tile_max(qs, dc.scoring, dc.valid, dc.tile_n)
     return _rescore(q32, tmax, dc, k)
+
+
+def cosine_topk(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    k: int,
+    chunk: int = 65536,
+    rescore_margin: int = 32,
+    score_dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k cosine similarity of L2-normalised (Q, D) queries against
+    (N, D) corpus rows, ``valid`` (N,) masking padding and tombstones:
+    counterpart of JAX ``index/search.py::cosine_topk`` (XLA there, plain
+    PyTorch here: no Pallas kernel is involved).
+
+    A streaming top-(k + rescore_margin) over chunks of ``chunk`` rows
+    scored in ``score_dtype`` with fp32 accumulation (the operands are
+    upcast, exactly, and multiplied in fp32), then an exact fp32 rescore
+    of the candidates, ties to the lower row index. Returns (scores (Q, k)
+    fp32 descending, indices (Q, k) int64); slots beyond the valid rows
+    are ``NEG_INF`` and -1."""
+    q32 = queries.to(dtype=torch.float32, device=corpus.device)
+    corpus = corpus.to(torch.float32)
+    n = corpus.shape[0]
+    nq = q32.shape[0]
+    kk = min(k + rescore_margin, n)
+    dev = corpus.device
+    qs = q32.to(score_dtype).float()
+    best_s = torch.full((nq, kk), NEG_INF, dtype=torch.float32, device=dev)
+    best_i = torch.full((nq, kk), -1, dtype=torch.int64, device=dev)
+    for off in range(0, n, chunk):
+        rows = corpus[off : off + chunk].to(score_dtype).float()
+        s = qs @ rows.T
+        s = torch.where(valid[off : off + chunk][None, :], s, NEG_INF)
+        idx = torch.arange(off, off + rows.shape[0], device=dev).expand(nq, -1)
+        cand_s = torch.cat([best_s, s], dim=1)
+        cand_i = torch.cat([best_i, idx], dim=1)
+        # lax.top_k: ties to the earlier position
+        best_s, pos = torch.sort(cand_s, dim=1, descending=True, stable=True)
+        best_s, pos = best_s[:, :kk], pos[:, :kk]
+        best_i = cand_i.gather(1, pos)
+    # exact fp32 rescore of the candidates, in row-index order so that
+    # equal scores resolve to the lower index
+    big = torch.iinfo(torch.int64).max
+    order = torch.argsort(torch.where(best_i < 0, big, best_i), dim=1, stable=True)
+    cand_i = best_i.gather(1, order)
+    rows = corpus[cand_i.clamp(min=0)]  # (Q, kk, D)
+    exact = torch.bmm(rows, q32[:, :, None])[:, :, 0]
+    exact = torch.where(cand_i >= 0, exact, NEG_INF)
+    top_s, pos = torch.sort(exact, dim=1, descending=True, stable=True)
+    top_s = top_s[:, : min(k, kk)]
+    top_i = cand_i.gather(1, pos[:, : min(k, kk)])
+    top_i = torch.where(top_s <= NEG_INF / 2, -1, top_i)
+    if kk < k:  # fewer rows than k: pad out
+        top_s = torch.nn.functional.pad(top_s, (0, k - kk), value=NEG_INF)
+        top_i = torch.nn.functional.pad(top_i, (0, k - kk), value=-1)
+    return top_s, top_i
 
 
 # -- capacity tier: int8 scoring on the device, fp32 rescore on the host -------

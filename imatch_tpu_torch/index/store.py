@@ -33,13 +33,30 @@ cosine *distance* ``1 - cos`` like a chroma cosine collection
   dispatches on the tag; ``stats()["last_build"]["engine"]`` reports it.
 - ``query`` runs the engine at the next power of two of k and keeps the
   first k, as the JAX store does: the candidate tiles (k_c + margin) and
-  so the answers on near-tied corpora are JAX's.
+  so the answers on near-tied corpora are JAX's. The query count is not
+  padded (JAX pads it with zero rows for its jit cache): each real row
+  costs phase 2 a rescore, and a zero row would cost one too.
+- ``query`` is timed as ``index.query`` (the request, coalescer queueing
+  included) and each engine call as ``index.dispatch``, inside
+  ``GATE.priority()`` up to its results on the host: bulk streams park
+  at their next checkpoint meanwhile (runtime/scheduler.py).
+- Coalescing (runtime/coalesce.py): with ``coalesce=True``, or
+  IMATCH_COALESCE=1 on a ``cuda`` store, concurrent single-row queries
+  share one engine call. Off by default, as in JAX.
+- ``warm`` runs the engine once for each (Q bucket, k bucket) pair on the
+  live state: the kernels are built and loaded, the allocator holds the
+  buffers, before the first request.
+- Device-resident add: ``add`` with a ``torch.Tensor`` scatters the rows
+  into the prepared state device to device (index/patch.py) and defers
+  the host mirror and the journal: a d2h copy into pinned memory starts
+  at once behind a CUDA event, and ``_drain_pending`` completes it at the
+  next drain point (a journaled op, a rebuild, ``save``, ``checkpoint``,
+  ``get(include=embeddings)``, ``flush``; at most IMATCH_PENDING_MAX
+  batches, default 64, wait).
 
-Not ported yet (ROADMAP.md, Queue 1): ``add`` with a device tensor that
-stays on the device (JAX ``_add_device``, ``flush``), the query
-coalescer, ``cosine_topk`` and ``warm``, the IVF snapshot sidecar, and
-the sharded and IVF engines, which raise ``NotImplementedError`` naming
-their ROADMAP item.
+Not ported yet (ROADMAP.md, Queue 1): the IVF snapshot sidecar, and the
+sharded and IVF engines, which raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -65,6 +82,8 @@ from imatch_tpu_torch.index.search import (
     prepare_host_rescore_corpus,
     tilemax_topk,
 )
+from imatch_tpu_torch.runtime.scheduler import GATE
+from imatch_tpu_torch.utils.metrics import METRICS
 
 logger = logging.getLogger("imatch.store")
 
@@ -98,6 +117,32 @@ def _norm_row_lists(rows, n: int, what: str) -> list:
     return rows
 
 
+class _PendingRows:
+    """The rows of a device-resident add on their way to the host mirror.
+    On the card the copy into pinned host memory is started at once
+    (``non_blocking``, asynchronous only into pinned memory) and a CUDA
+    event recorded behind it; ``np.asarray`` waits on that event, not on
+    the stream, and returns the rows. On the CPU the rows are copied. The
+    source may be freed at once: the caching allocator hands its memory
+    only to work queued after the copy on the same stream."""
+
+    def __init__(self, rows: torch.Tensor):
+        self._event = None
+        if rows.is_cuda:
+            self._host = torch.empty(rows.shape, dtype=torch.float32, pin_memory=True)
+            self._host.copy_(rows, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(rows.device))
+        else:
+            self._host = rows.detach().clone()
+
+    def __array__(self, dtype=None, copy=None):
+        if self._event is not None:
+            self._event.synchronize()
+        out = self._host.numpy()
+        return out if dtype is None else out.astype(dtype, copy=False)
+
+
 def _env_engine() -> str:
     return os.environ.get("IMATCH_INDEX_ENGINE", "tilemax").lower()
 
@@ -120,6 +165,7 @@ class VectorStore:
         score_dtype: Optional[str] = None,
         capacity: Optional[int] = None,
         device: DeviceLike = None,
+        coalesce: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
         self.dim = dim
@@ -171,6 +217,10 @@ class VectorStore:
         self._patch_rebuilds = 0  # mutations that fell back to invalidate
         self._last_build: Optional[dict] = None
         self._last_load: Optional[dict] = None  # stats(): load()'s seconds
+        # device-resident adds whose host mirror rows and journal entries
+        # are deferred: (base, k, _PendingRows, ids, metadatas, documents),
+        # completed first in, first out by _drain_pending
+        self._pending: List[tuple] = []
         # A slot reservation: a right-sized one means steady-state ingest
         # never grows the capacity, so every add patches. Remembered, not
         # only applied here: load() builds the store with dim=None, so the
@@ -180,6 +230,19 @@ class VectorStore:
         self._reserve = int(capacity) if capacity else 0
         if self._reserve and dim:
             self._ensure_capacity(0)
+        # The dynamic-batching front, decided at construction; the worker
+        # starts at the first submit. ``coalesce=None`` reads
+        # IMATCH_COALESCE, for a store on the card only (JAX gates it to an
+        # accelerator backend: batched scoring on the CPU is bound by its
+        # multiply-adds); True forces it.
+        self._coalescer = None
+        if coalesce is None:
+            coalesce = (
+                os.environ.get("IMATCH_COALESCE", "").lower() in ("1", "true", "yes", "on")
+                and self.device.type == "cuda"
+            )
+        if coalesce:
+            self.set_coalescing(True)
 
     # -- capacity -----------------------------------------------------------
 
@@ -288,6 +351,87 @@ class VectorStore:
         self._device_corpus = None
         self._patch_rebuilds += 1
 
+    # -- device-resident add -------------------------------------------------
+
+    def _drain_pending(self):
+        """Complete deferred device-resident adds, first in first out: the
+        host mirror rows, then their journal entries (journal order is op
+        order). Each batch is popped only once it has fully drained: a
+        failed copy leaves it and the batches behind it pending for the
+        next drain point, never dropped with live ids whose mirror rows
+        are zeros and whose journal entries never land."""
+        if not self._pending:
+            return
+        with self._lock:
+            while self._pending:
+                base, k, rows, ids, mds, docs = self._pending[0]
+                host = np.asarray(rows, np.float32)
+                self._emb[base : base + k] = host
+                if self.persist_dir is not None:
+                    self._journal(
+                        *(
+                            {
+                                "op": "add",
+                                "id": id_,
+                                "metadata": md,
+                                "document": doc,
+                                "embedding": self._enc_emb(host[i]),
+                            }
+                            for i, (id_, md, doc) in enumerate(zip(ids, mds, docs))
+                        )
+                    )
+                self._pending.pop(0)
+
+    def _add_device(self, ids, emb: torch.Tensor, metadatas, documents):
+        """``add`` with the embeddings in a tensor (straight out of the
+        image tower): the rows are scattered device to device into the
+        prepared state (index/patch.py) and never cross to the host on the
+        hot path. The host fp32 mirror and the journal entries wait for
+        the next drain point (``_drain_pending``); ``flush``,
+        ``checkpoint`` and the launcher's SIGTERM snapshot drain first.
+        With a journal, an op's durability widens to that drain point.
+
+        The caller (``add``) holds the lock and has checked ``ids``."""
+        if emb.ndim == 1:
+            emb = emb[None]
+        if emb.ndim != 2 or emb.shape[0] != len(ids):
+            raise ValueError(f"{len(ids)} ids but embeddings of shape {tuple(emb.shape)}")
+        if self.dim is None:
+            self.dim = int(emb.shape[1])
+        elif int(emb.shape[1]) != self.dim:
+            # the host path would raise at the slice copy; the device path
+            # must not find out at drain time
+            raise ValueError(f"embedding dim {emb.shape[1]} != store dim {self.dim}")
+        metadatas = _norm_row_lists(metadatas, len(ids), "metadatas")
+        documents = _norm_row_lists(documents, len(ids), "documents")
+        seen = set()
+        for i in ids:
+            if i in self._slot or i in seen:
+                raise ValueError(f"duplicate id {i}")
+            seen.add(i)
+        emb = emb.detach().to(device=self.device, dtype=torch.float32)
+        rows = _PendingRows(emb)
+        self._ensure_capacity(len(ids))
+        base = self._n
+        self._alive[base : base + len(ids)] = True
+        self._ids.extend(ids)
+        self._meta.extend(metadatas)
+        self._docs.extend(documents)
+        self._slot.update(zip(ids, range(base, base + len(ids))))
+        self._n = base + len(ids)
+        self._pending.append((base, len(ids), rows, list(ids), list(metadatas), list(documents)))
+        self._patch_or_invalidate("append", np.arange(base, self._n, dtype=np.int64), emb)
+        # bound the pinned host memory of undrained batches and how far the
+        # journal lags behind the acknowledged adds
+        if len(self._pending) >= int(os.environ.get("IMATCH_PENDING_MAX", "64")):
+            self._drain_pending()
+
+    def flush(self):
+        """Complete any deferred device-resident adds (host mirror and
+        journal). A no-op unless ``add`` was given a tensor."""
+        with self._lock:
+            self._drain_pending()
+
     # -- chroma-like API ----------------------------------------------------
 
     def add(
@@ -302,7 +446,10 @@ class VectorStore:
             raise ValueError("expected non-empty ids for add")
         with self._lock:
             if isinstance(embeddings, torch.Tensor):
-                embeddings = embeddings.detach().float().cpu().numpy()
+                return self._add_device(ids, embeddings, metadatas, documents)
+            if self._pending and self.persist_dir is not None:
+                # journal order is op order: deferred device adds first
+                self._drain_pending()
             embeddings = np.asarray(embeddings, dtype=np.float32)
             if embeddings.ndim == 1:
                 embeddings = embeddings[None]
@@ -358,6 +505,8 @@ class VectorStore:
         include: Sequence[str] = ("metadatas", "documents"),
     ) -> dict:
         with self._lock:
+            if "embeddings" in include:
+                self._drain_pending()
             if ids is None:
                 slots = [i for i in range(self._n) if self._alive[i]]
             else:
@@ -384,6 +533,10 @@ class VectorStore:
         metadatas: Optional[Sequence[dict]] = None,
     ):
         with self._lock:
+            # a pending device add of one of these slots drains first, or
+            # its deferred host fill would overwrite the update (and the
+            # journal would hold the ops out of order)
+            self._drain_pending()
             # validate every id, length and shape before touching any state
             slots_all: List[int] = []
             for id_ in ids:
@@ -427,6 +580,7 @@ class VectorStore:
 
     def delete(self, ids: Sequence[str]):
         with self._lock:
+            self._drain_pending()  # journal order; compaction reads the mirror
             deleted = []
             slots = []
             for id_ in ids:
@@ -464,12 +618,16 @@ class VectorStore:
                 "score_dtype": str(self.score_dtype).replace("torch.", ""),
                 "tile_n": self.tile_n,
                 "margin": self.margin,
+                "coalescing": self._coalescer is not None,
                 "device_ready": self._device_corpus is not None,
                 "journal_ops": self._journal_len,
                 # incremental mutation health: patched should dominate
                 # rebuilds in steady state (index/patch.py)
                 "patched_mutations": self._patched,
                 "rebuild_mutations": self._patch_rebuilds,
+                # device-resident adds whose host mirror rows and journal
+                # entries wait for the next drain point
+                "pending_host_syncs": len(self._pending),
             }
             if self._last_build is not None:
                 out["last_build"] = dict(self._last_build)
@@ -560,6 +718,7 @@ class VectorStore:
             if self._device_corpus is None:
                 if self._emb is None:
                     return None
+                self._drain_pending()  # the build reads the host mirror
                 self._device_corpus = self._build_device(self._emb.copy(), self._alive.copy())
             return self._device_corpus
 
@@ -603,6 +762,7 @@ class VectorStore:
             if dc is None:
                 if self._emb is None:
                     return live, None, ids_l, meta_l, docs_l
+                self._drain_pending()  # the build reads the host mirror
                 emb = self._emb.copy()
                 alive = self._alive.copy()
             else:
@@ -627,6 +787,50 @@ class VectorStore:
         with self._lock:
             self._inflight -= 1
 
+    def warm(
+        self,
+        n_results_list: Sequence[int] = (1, 10, 25, 50, 100, 1000),
+        q_counts: Sequence[int] = (1,),
+    ):
+        """Run the engine once for each (Q bucket, k bucket) pair that
+        serving uses (the limit select's 10/25/50/100/All -> 1000, and
+        ``q_counts``, the query counts of ``/api/search/batch`` and the
+        coalescer, bucketed to powers of two), on the live state: the
+        kernels are built and loaded and the allocator holds the buffers
+        before the first request. ``query`` runs at the real count (no jit
+        cache to key), so the Q buckets only size those buffers. Mutates
+        nothing."""
+        live, dc, _, _, _ = self._snapshot_for_query()
+        try:
+            if dc is None or live == 0:
+                return
+            seen = set()
+            for qc in q_counts:
+                q = torch.zeros((self._k_bucket(qc), self.dim), dtype=torch.float32)
+                for nr in n_results_list:
+                    k_c = self._k_bucket(min(nr, live))
+                    if (q.shape[0], k_c) in seen:
+                        continue
+                    seen.add((q.shape[0], k_c))
+                    self._run_engine(q, dc, k_c)
+        finally:
+            self._release_snapshot(dc)
+
+    def set_coalescing(self, enabled: bool):
+        """Turn the dynamic-batching front on or off; off stops the
+        worker thread and drops its reference to this store."""
+        if enabled and self._coalescer is None:
+            from imatch_tpu_torch.runtime.coalesce import QueryCoalescer
+
+            self._coalescer = QueryCoalescer(self._query_impl)
+        elif not enabled and self._coalescer is not None:
+            self._coalescer.close()
+            self._coalescer = None
+
+    @property
+    def coalescing(self) -> bool:
+        return self._coalescer is not None
+
     def query(
         self,
         query_embeddings,
@@ -637,13 +841,27 @@ class VectorStore:
         ``query_embeddings`` may be a tensor already on the device (the
         embedder's output), which then feeds the engine with no host copy.
         The engine runs outside the store lock: writers never wait for a
-        query."""
+        query. With coalescing on, concurrent single-row queries share one
+        engine call (runtime/coalesce.py)."""
         if isinstance(query_embeddings, torch.Tensor):
             q = query_embeddings.float()
         else:
             q = torch.from_numpy(np.asarray(query_embeddings, dtype=np.float32))
         if q.ndim == 1:
             q = q[None]
+        with METRICS.timer("index.query"):
+            c = self._coalescer  # one read: set_coalescing(False) may race
+            if q.shape[0] == 1 and c is not None:
+                from imatch_tpu_torch.runtime.coalesce import CoalescerClosed
+
+                try:
+                    return c.submit(q, n_results, tuple(include))
+                except CoalescerClosed:
+                    pass  # turned off meanwhile: serve directly
+            return self._query_impl(q, n_results, include)
+
+    def _query_impl(self, q: torch.Tensor, n_results: int, include: Sequence[str]) -> dict:
+        """``query`` on a (Q, D) tensor, without the coalescer."""
         qn = q.shape[0]
         live, dc, ids_l, meta_l, docs_l = self._snapshot_for_query()
         try:
@@ -653,7 +871,13 @@ class VectorStore:
                 for key in out:
                     out[key] = [[] for _ in range(qn)]
                 return self._strip_include(out, include)
-            scores, idx = self._run_engine(q, dc, self._k_bucket(k))
+            # Q is not padded to a power of two as in JAX, where it keys
+            # the jit cache: the port has none, and a zero row would cost
+            # phase 2 a full rescore and K1 a corpus read a 16-row block
+            with METRICS.timer("index.dispatch"), GATE.priority():
+                # the section ends with the results on the host: bulk
+                # streams park at their next checkpoint until then
+                scores, idx = self._run_engine(q, dc, self._k_bucket(k))
         finally:
             self._release_snapshot(dc)
         scores, idx = scores[:, :k], idx[:, :k]
@@ -696,6 +920,7 @@ class VectorStore:
         if path is None:
             raise ValueError("no path and no persist_dir")
         with self._lock:
+            self._drain_pending()  # the snapshot reads the host mirror
             os.makedirs(path, exist_ok=True)
             slots = [i for i in range(self._n) if self._alive[i]]
             gen = int(time.time() * 1e6)

@@ -30,10 +30,14 @@ the CPU. Environment, as in JAX:
 - IMATCH_MD_SEG (default 8): caption decode in segments of that many
   steps (0: one loop); the tokens are the same either way.
 
+The bulk paths park at ``GATE.checkpoint()`` (runtime/scheduler.py)
+before each encode chunk, decode segment and yes/no chunk, a point where
+the host has already waited for the previous one, so a search during a
+back-fill waits for at most one of them. Each call is timed under the JAX
+package's ``vlm.*`` METRICS names.
+
 Not ported (ROADMAP.md Queue 1 step 10): IMATCH_MD_QUANT=int8,
 IMATCH_MD_ACT=int8 and IMATCH_MD_CACHE=int8 raise NotImplementedError.
-Nor is the GATE priority gate between chunks and segments, nor METRICS
-(steps 5 and 13).
 """
 
 from __future__ import annotations
@@ -58,6 +62,8 @@ from imatch_tpu_torch.models.moondream.generate import (
 )
 from imatch_tpu_torch.models.moondream.model import encode_image_features
 from imatch_tpu_torch.ops.resize import resample_matrix
+from imatch_tpu_torch.runtime.scheduler import GATE
+from imatch_tpu_torch.utils.metrics import METRICS
 from imatch_tpu_torch.ops.tokenizer_gpt2 import GPT2Tokenizer
 from imatch_tpu_torch.utils.batching import pad_rows, pow2_bucket, to_rgb
 
@@ -180,7 +186,7 @@ class MoondreamTorch:
         return encode_image_features(self.model, pixels).float().cpu().numpy()
 
     def encode_image(self, image) -> Dict[str, np.ndarray]:
-        with self._lock:
+        with self._lock, METRICS.timer("vlm.encode"):
             return {"features": self._encode(self._preprocess(image))[0]}
 
     def _feats(self, encoded: Any) -> torch.Tensor:
@@ -206,10 +212,13 @@ class MoondreamTorch:
         return greedy_generate(self.model, logits, cache, pos, max_new=max_new)
 
     def _generate_segmented(self, feats, tokens, max_new: int, seg: int):
-        """Prefill, then decode in segments of ``seg`` steps."""
+        """Prefill, then decode in segments of ``seg`` steps, parking at the
+        gate before each (every decode step reads ``done`` on the host, so
+        the card holds no queued segment there)."""
         logits, cache, pos = prefill(self.model, feats, tokens, max_new=max_new)
         state = init_gen_state(self.model, logits, cache, pos, max_new=max_new)
         for _ in range(-(-max_new // seg)):
+            GATE.checkpoint()
             state = gen_segment(self.model, state, steps=seg, max_new=max_new)
         return finish_gen(state, eos=self.cfg.text.eos_token_id, max_new=max_new)
 
@@ -225,13 +234,13 @@ class MoondreamTorch:
         return [self.tokenizer.decode(toks[i][: int(lens[i])]).strip() for i in range(rows)]
 
     def caption(self, encoded: Any, max_new: int = 48) -> Dict[str, str]:
-        with self._lock:
+        with self._lock, METRICS.timer("vlm.caption"):
             tokens = self._tokens(self._prompt_id_list(CAPTION_PROMPT, max_new=max_new), 1)
             result = self._run_generate(self._feats(encoded), tokens, max_new)
             return {"caption": self._decode_texts(result, 1)[0]}
 
     def query(self, encoded: Any, question: str, max_new: int = 32) -> Dict[str, str]:
-        with self._lock:
+        with self._lock, METRICS.timer("vlm.query"):
             feats = self._feats(encoded)
             prompt = f"\n\nQuestion: {question}\n\nAnswer:"
             tokens = self._tokens(self._prompt_id_list(prompt, max_new=max_new), 1)
@@ -254,8 +263,9 @@ class MoondreamTorch:
         chunk = int(os.environ.get("IMATCH_VLM_ENC_CHUNK", "16"))
         arrs = [to_rgb(im) for im in images]
         out: list = [None] * len(arrs)
-        with self._lock:
+        with self._lock, METRICS.timer("vlm.encode_batch"):
             for s in range(0, len(arrs), chunk):
+                GATE.checkpoint()  # the last chunk's features are on the host
                 part = list(range(s, min(s + chunk, len(arrs))))
                 pix = torch.cat([self._preprocess(arrs[i]) for i in part], dim=0)
                 feats = self._encode(pad_rows(pix, pow2_bucket(len(part), chunk)))
@@ -274,7 +284,7 @@ class MoondreamTorch:
         chunk = int(os.environ.get("IMATCH_VLM_CAP_CHUNK", "16"))
         ids = self._prompt_id_list(CAPTION_PROMPT, max_new=max_new)
         texts: list = []
-        with self._lock:
+        with self._lock, METRICS.timer("vlm.caption_batch"):
             for s in range(0, len(encoded_list), chunk):
                 part = encoded_list[s : s + chunk]
                 b = pow2_bucket(len(part), chunk)
@@ -291,8 +301,9 @@ class MoondreamTorch:
         # max_new=1: prefill only, but the prompt must still fit the budget
         ids = self._prompt_id_list(f"\n\nQuestion: {question}\n\nAnswer:", max_new=1)
         out: list = []
-        with self._lock:
+        with self._lock, METRICS.timer("vlm.query_batch"):
             for s in range(0, len(encoded_list), chunk):
+                GATE.checkpoint()  # the last chunk's answers are on the host
                 part = encoded_list[s : s + chunk]
                 b = pow2_bucket(len(part), chunk)
                 ans = vqa_yes_no(

@@ -6,8 +6,14 @@ their ``*_device`` forms (embeddings left on the card to feed
 ``VectorStore.query`` without a host round trip), power-of-two chunk
 buckets, the vocab fold for the byte-fallback tokenizer, the text LRU, a
 lock around the towers, the opt-in W8A8 image tower
-(``IMATCH_EMBED_QUANT=int8``) and the fused bulk-ingest step
-(``ids_and_embed_images_stream``).
+(``IMATCH_EMBED_QUANT=int8``), the fused bulk-ingest step
+(``ids_and_embed_images_stream``, whose ``device_embeddings`` mode leaves
+the embeddings on the card for a device-resident store add, and which
+parks at ``GATE.checkpoint()`` between chunks while a search is in
+flight), query image batches chunked by a source-pixel budget
+(IMATCH_QUERY_PIXEL_BUDGET), and the JAX package's METRICS names
+(``images_embedded``, ``embed.image``, ``embed.text``,
+``embed.text_cache_hit``, ``ingest.fused``).
 
 Weights, in order of precedence: ``params=`` (a numpy param tree in the
 JAX layout, e.g. ``init_params(jax.random.key(0))`` carried across, which
@@ -17,9 +23,7 @@ from a ``torch.Generator`` (normal(0.02), as the JAX init draws). The
 device is ``cuda`` unless ``device="cpu"`` is passed (device.py); compute
 is bf16 on the card and fp32 on the CPU.
 
-Not ported yet (ROADMAP.md): data parallelism, the GATE priority gate,
-METRICS and the ``device_embeddings`` stream mode (it needs
-index/patch.py).
+Not ported yet (ROADMAP.md Queue 1 step 12): data parallelism.
 """
 
 from __future__ import annotations
@@ -49,7 +53,9 @@ from imatch_tpu_torch.ops.phash import (
 from imatch_tpu_torch.ops.preprocess import preprocess_core, preprocess_images
 from imatch_tpu_torch.ops.resize import resample_matrix, resize_crop_matrices
 from imatch_tpu_torch.ops.tokenizer import default_tokenizer
+from imatch_tpu_torch.runtime.scheduler import GATE
 from imatch_tpu_torch.utils.batching import pow2_bucket
+from imatch_tpu_torch.utils.metrics import METRICS
 
 logger = logging.getLogger("imatch.embedder")
 
@@ -151,9 +157,9 @@ class ClipEmbedder:
             b = min(chunk, n - s)
             yield s, b, pow2_bucket(b, chunk)
 
-    def _run_tower(self, fn, rows: torch.Tensor) -> torch.Tensor:
+    def _run_tower(self, fn, rows: torch.Tensor, metric: str) -> torch.Tensor:
         outs = []
-        with self._lock:
+        with self._lock, METRICS.timer(metric):
             for s, b, bp in self._chunks(rows.shape[0]):
                 part = rows[s : s + b]
                 if bp > b:
@@ -162,12 +168,12 @@ class ClipEmbedder:
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def _embed_pixels(self, pixels: torch.Tensor) -> torch.Tensor:
-        return self._run_tower(lambda p: encode_image(self.model, p), pixels)
+        return self._run_tower(lambda p: encode_image(self.model, p), pixels, "embed.image")
 
     def _embed_tokens(self, tokens: np.ndarray) -> torch.Tensor:
         ids = torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
         return self._run_tower(
-            lambda t: encode_text(self.model, t, eos_token_id=self._model_eos), ids
+            lambda t: encode_text(self.model, t, eos_token_id=self._model_eos), ids, "embed.text"
         )
 
     def _tokenize(self, texts: Sequence[str]) -> np.ndarray:
@@ -183,11 +189,7 @@ class ClipEmbedder:
 
     # -- device-resident embeddings ------------------------------------------
 
-    def embed_images_device(self, images: Sequence[np.ndarray]) -> torch.Tensor:
-        """uint8 HWC RGB frames (any geometries) -> (N, proj) unit fp32 on
-        the device."""
-        if len(images) == 0:
-            return torch.zeros((0, self.dim), device=self.device)
+    def _embed_frames(self, images: Sequence[np.ndarray]) -> torch.Tensor:
         pixels = preprocess_images(
             images,
             device=self.device,
@@ -195,6 +197,33 @@ class ClipEmbedder:
             dtype=self.compute_dtype,
         )
         return self._embed_pixels(pixels)
+
+    def embed_images_device(self, images: Sequence[np.ndarray]) -> torch.Tensor:
+        """uint8 HWC RGB frames (any geometries) -> (N, proj) unit fp32 on
+        the device: query images, not counted in ``images_embedded``.
+
+        Preprocessing holds every frame in fp32 on the device before its
+        resize, so a batch of camera photos is taken in chunks of at most
+        IMATCH_QUERY_PIXEL_BUDGET source pixels (default 2^26, 0.8 GB of
+        fp32; a frame above it goes alone): the transient memory stays
+        bounded, and a batch of small frames is one chunk."""
+        n = len(images)
+        if n == 0:
+            return torch.zeros((0, self.dim), device=self.device)
+        budget = int(os.environ.get("IMATCH_QUERY_PIXEL_BUDGET", str(1 << 26)))
+        outs = []
+        start = 0
+        while start < n:
+            end, px = start, 0
+            while end < n:
+                im_px = images[end].shape[0] * images[end].shape[1]
+                if end > start and px + im_px > budget:
+                    break
+                px += im_px
+                end += 1
+            outs.append(self._embed_frames(images[start:end]))
+            start = end
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def embed_image_device(self, image: np.ndarray) -> torch.Tensor:
         return self.embed_images_device([image])[0]
@@ -212,6 +241,7 @@ class ClipEmbedder:
                 emb = self._text_cache.get(text)
                 if emb is not None:
                     self._text_cache.move_to_end(text)
+                    METRICS.inc("embed.text_cache_hit")
                     return emb
         emb = self._embed_tokens(self._tokenize([text]))[0]
         if self._text_cache_cap > 0:
@@ -226,7 +256,10 @@ class ClipEmbedder:
 
     def embed_images(self, images: Sequence[np.ndarray]) -> np.ndarray:
         """uint8 HWC RGB arrays (any geometries) -> (N, proj) unit fp32."""
-        return self.embed_images_device(images).cpu().numpy()
+        if len(images) == 0:
+            return np.zeros((0, self.dim), np.float32)
+        METRICS.inc("images_embedded", len(images))
+        return self._embed_frames(images).cpu().numpy()
 
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
         """Strings -> (N, proj) unit fp32, eos-padded to the context length."""
@@ -252,7 +285,11 @@ class ClipEmbedder:
         return emb, bits, confident, small
 
     def ids_and_embed_images_stream(
-        self, images: Sequence[Optional[np.ndarray]], pool=None, max_in_flight: int = 4
+        self,
+        images: Sequence[Optional[np.ndarray]],
+        pool=None,
+        max_in_flight: int = 4,
+        device_embeddings: bool = False,
     ):
         """Bulk-ingest fast path, streamed: pHash ids AND CLIP embeddings
         from one device upload per geometry chunk (``_fused_step``),
@@ -269,7 +306,19 @@ class ClipEmbedder:
         host (over ``pool`` when given), in one final yield. None entries
         (failed decodes) are not yielded.
 
+        Before each chunk's dispatch the stream calls ``GATE.checkpoint()``:
+        while a search's store query is in flight it parks there. Past the
+        first ``max_in_flight`` chunks each dispatch follows a drain, whose
+        copy to the host has waited for its chunk, so a store query queues
+        behind at most ``max_in_flight`` chunks (the search's text or image
+        tower runs before its priority section, while chunks still
+        dispatch).
+
         Yields (indices, ids, embeddings (len(indices), proj) fp32 numpy).
+        With ``device_embeddings=True`` the fused chunks yield their
+        embeddings as tensors left on the device (only the hash bits cross
+        to the host), for a store add that scatters them device to device;
+        the small-bucket tail still yields numpy.
         """
         buckets: Dict[tuple, list] = {}
         for i, im in enumerate(images):
@@ -281,7 +330,14 @@ class ClipEmbedder:
 
         def drain_one():
             idxs_chunk, handles = in_flight.pop(0)
-            e, bits, conf, small = (t.cpu().numpy() for t in handles)
+            if device_embeddings:
+                e = handles[0]  # stays on the device for a d2d store add
+                bits, conf, small = (t.cpu().numpy() for t in handles[1:])
+            else:
+                e, bits, conf, small = (t.cpu().numpy() for t in handles)
+            # counted per finished chunk: a stream that dies part way must
+            # not count what the caller's fallback embeds again
+            METRICS.inc("images_embedded", len(idxs_chunk))
             ids_c = [
                 f"img_{bits_to_hex(bits[j]) if conf[j] else host_bits_from_small(small[j])}"
                 for j in range(len(idxs_chunk))
@@ -303,8 +359,9 @@ class ClipEmbedder:
                 )
             )
             for s, b, bp in self._chunks(len(idxs)):
+                GATE.checkpoint()  # bulk ingest yields to live searches
                 part = np.stack([images[i] for i in idxs[s : s + b]])
-                with self._lock:
+                with self._lock, METRICS.timer("ingest.fused"):
                     dev = torch.from_numpy(part).to(self.device)
                     if bp > b:
                         dev = torch.cat([dev, dev[-1:].expand(bp - b, *dev.shape[1:])])

@@ -14,7 +14,13 @@ Counterparts of ``process_image`` and ``process_batch`` in
   embeddings), a batched duplicate check per streamed chunk, saves on a
   host pool overlapping the device work, batched captions and filter
   answers (``encode_image_batch``, ``caption_batch``,
-  ``query_yes_no_batch``), one ``store.add``, per-file results.
+  ``query_yes_no_batch``), one ``store.add``, per-file results. With
+  IMATCH_DEVICE_INGEST=1 the fused chunks' embeddings stay on the card:
+  they are gathered there into one tensor and ``store.add`` scatters them
+  device to device (index/store.py ``_add_device``); the host mirror and
+  the journal are completed by ``store.flush()`` before the response
+  (IMATCH_DEVICE_INGEST_FLUSH, default on). Stages are timed under the
+  JAX package's ``ingest.*`` METRICS names.
 
 A caption or filter failure is logged and costs the image its caption or
 answers, not its upload, as in the JAX package. With the
@@ -41,6 +47,7 @@ from imatch_tpu_torch.pipeline.captioner import save_encoded
 from imatch_tpu_torch.pipeline.filters import format_filter_query
 from imatch_tpu_torch.pipeline.state import AppState
 from imatch_tpu_torch.utils.batching import to_rgb
+from imatch_tpu_torch.utils.metrics import METRICS
 
 logger = logging.getLogger("imatch.ingest")
 
@@ -71,6 +78,46 @@ def _save_pool() -> ThreadPoolExecutor:
                 max_workers=min(8, os.cpu_count() or 4), thread_name_prefix="imatch-save"
             )
         return _SAVE_POOL
+
+
+def _gather_device_rows(chunks, pairs):
+    """The (chunk number, row) pairs of device-resident ingest as ONE
+    tensor in pair order: an index_select a source chunk and one
+    permutation, all on the device."""
+    import torch
+
+    ks = np.asarray([p[0] for p in pairs])
+    js = np.asarray([p[1] for p in pairs])
+    parts, order = [], []
+    for k in np.unique(ks):
+        sel = np.nonzero(ks == k)[0]
+        src = chunks[int(k)]
+        parts.append(src.index_select(0, torch.from_numpy(js[sel]).to(src.device)))
+        order.append(sel)
+    order = np.concatenate(order)
+    out = torch.cat(parts) if len(parts) > 1 else parts[0]
+    if np.array_equal(order, np.arange(order.size)):
+        return out
+    inv = np.empty_like(order)
+    inv[order] = np.arange(order.size)
+    return out.index_select(0, torch.from_numpy(inv).to(out.device))
+
+
+def _materialize_rows(chunks, vals):
+    """A batch that mixes device chunks and host rows (the small-bucket
+    tail, a fallback): (chunk number, row) pairs become host rows, one
+    copy a referenced chunk; numpy rows pass through."""
+    cache: Dict[int, np.ndarray] = {}
+    out = []
+    for v in vals:
+        if isinstance(v, tuple):
+            k, j = v
+            if k not in cache:
+                cache[k] = chunks[k].float().cpu().numpy()
+            out.append(cache[k][j])
+        else:
+            out.append(v)
+    return out
 
 
 def _now_iso() -> str:
@@ -305,14 +352,15 @@ def process_batch(
     arrays: List[Optional[np.ndarray]] = [None] * n
     pool = _host_pool()
 
-    for i, (im, name) in enumerate(zip(images, filenames)):
-        try:
-            if isinstance(im, np.ndarray):
-                arrays[i] = to_rgb(im)
-            else:
-                arrays[i] = np.asarray(im.convert("RGB") if im.mode != "RGB" else im)
-        except Exception as e:
-            results[i] = {"filename": name, "status": "error", "error": str(e)}
+    with METRICS.timer("ingest.to_array"):
+        for i, (im, name) in enumerate(zip(images, filenames)):
+            try:
+                if isinstance(im, np.ndarray):
+                    arrays[i] = to_rgb(im)
+                else:
+                    arrays[i] = np.asarray(im.convert("RGB") if im.mode != "RGB" else im)
+            except Exception as e:
+                results[i] = {"filename": name, "status": "error", "error": str(e)}
 
     png_level = int(os.environ.get("IMATCH_PNG_COMPRESS", "1"))
     save_original = (
@@ -349,26 +397,31 @@ def process_batch(
         """Classify hashed images as fresh or duplicate with ONE batched
         store lookup; fresh files' saves start at once (their frames are
         final), overlapping the device work of later chunks."""
-        todo = []
-        for i in idx_list:
-            checked[i] = True
-            if results[i] is None:
-                todo.append(i)
-        q_ids = [ids[i] for i in todo if ids[i] is not None]
-        present = set(state.store.get(ids=q_ids, include=[])["ids"]) if q_ids else set()
-        for i in todo:
-            if ids[i] in seen_batch or ids[i] in present:
-                results[i] = {
-                    "filename": filenames[i],
-                    "status": "skipped",
-                    "id": ids[i],
-                    "message": "Duplicate image detected",
-                }
-                arrays[i] = None
-                continue
-            seen_batch.add(ids[i])
-            fresh.append(i)
-            _submit_save(i)
+        new = []
+        with METRICS.timer("ingest.dup"):
+            todo = []
+            for i in idx_list:
+                checked[i] = True
+                if results[i] is None:
+                    todo.append(i)
+            q_ids = [ids[i] for i in todo if ids[i] is not None]
+            present = set(state.store.get(ids=q_ids, include=[])["ids"]) if q_ids else set()
+            for i in todo:
+                if ids[i] in seen_batch or ids[i] in present:
+                    results[i] = {
+                        "filename": filenames[i],
+                        "status": "skipped",
+                        "id": ids[i],
+                        "message": "Duplicate image detected",
+                    }
+                    arrays[i] = None
+                    continue
+                seen_batch.add(ids[i])
+                new.append(i)
+        fresh.extend(new)
+        with METRICS.timer("ingest.save"):
+            for i in new:
+                _submit_save(i)
 
     def _host_hash(idxs):
         def one(i):
@@ -379,13 +432,29 @@ def process_batch(
 
         list(pool.map(one, idxs))
 
-    emb_by_idx: Dict[int, np.ndarray] = {}
+    # Device-resident ingest (IMATCH_DEVICE_INGEST=1): the fused chunks'
+    # embeddings stay on the card, and emb_by_idx holds (chunk number,
+    # row) pairs into emb_chunks for their rows; numpy rows otherwise (the
+    # small-bucket tail, the fallbacks). Both forms compose below.
+    device_mode = os.environ.get("IMATCH_DEVICE_INGEST", "0").lower() in ("1", "true", "yes", "on")
+    emb_chunks: List = []
+    emb_by_idx: Dict[int, object] = {}
     try:
-        for idxs, ids_c, e in state.get_embedder().ids_and_embed_images_stream(arrays, pool=pool):
-            for j, i in enumerate(idxs):
-                ids[i] = ids_c[j]
-                emb_by_idx[i] = e[j]
-            _dup_check(idxs)
+        with METRICS.timer("ingest.stream"):
+            for idxs, ids_c, e in state.get_embedder().ids_and_embed_images_stream(
+                arrays, pool=pool, device_embeddings=device_mode
+            ):
+                if device_mode and not isinstance(e, np.ndarray):
+                    k = len(emb_chunks)
+                    emb_chunks.append(e)
+                    for j, i in enumerate(idxs):
+                        ids[i] = ids_c[j]
+                        emb_by_idx[i] = (k, j)
+                else:
+                    for j, i in enumerate(idxs):
+                        ids[i] = ids_c[j]
+                        emb_by_idx[i] = e[j]
+                _dup_check(idxs)
     except Exception as e:
         # Files already streamed keep their ids and embeddings; the rest
         # hash on the host and embed on the plain path below.
@@ -407,7 +476,8 @@ def process_batch(
     missing = [i for i in fresh if i not in emb_by_idx]
     if missing:
         try:
-            more = state.get_embedder().embed_images([arrays[i] for i in missing])
+            with METRICS.timer("ingest.embed"):
+                more = state.get_embedder().embed_images([arrays[i] for i in missing])
             for j, i in enumerate(missing):
                 emb_by_idx[i] = more[j]
         except Exception as e:
@@ -427,13 +497,14 @@ def process_batch(
     # saves land before results return (the metadata URLs point at them);
     # a failed save demotes that file to an error
     save_failed = set()
-    for i in fresh:
-        try:
-            save_futs[i].result()
-        except Exception as e:
-            logger.error("processed save failed for %s: %s", ids[i], e)
-            save_failed.add(i)
-            results[i] = {"filename": filenames[i], "status": "error", "error": f"save failed: {e}"}
+    with METRICS.timer("ingest.save_wait"):
+        for i in fresh:
+            try:
+                save_futs[i].result()
+            except Exception as e:
+                logger.error("processed save failed for %s: %s", ids[i], e)
+                save_failed.add(i)
+                results[i] = {"filename": filenames[i], "status": "error", "error": f"save failed: {e}"}
 
     add_ids, add_embs, add_mds, add_docs = [], [], [], []
     for i in fresh:
@@ -464,13 +535,24 @@ def process_batch(
         _reap_orphan_saves(state, results, ids, save_futs, save_ext)
         return results
 
-    with state.lock:
+    # device rows: an all-device batch is assembled into ONE tensor on the
+    # card, which store.add scatters with no host round trip; a mixed
+    # batch (the small-bucket tail, a fallback) comes to the host
+    if any(isinstance(v, tuple) for v in add_embs):
+        if all(isinstance(v, tuple) for v in add_embs):
+            add_embs = _gather_device_rows(emb_chunks, add_embs)
+        else:
+            add_embs = _materialize_rows(emb_chunks, add_embs)
+
+    with state.lock, METRICS.timer("ingest.add"):
         inserted = set(add_ids)
         try:
             state.store.add(ids=add_ids, embeddings=add_embs, metadatas=add_mds, documents=add_docs)
         except ValueError:
             # a concurrent upload added one of these ids after the dup
             # check: add one by one, reclassifying the collisions
+            if not isinstance(add_embs, list):
+                add_embs = list(add_embs.float().cpu().numpy())
             inserted = set()
             for j, img_id in enumerate(add_ids):
                 try:
@@ -489,6 +571,13 @@ def process_batch(
         for md in add_mds:
             if md["id"] in inserted:
                 state.image_metadata[md["id"]] = md
+    if device_mode and os.environ.get("IMATCH_DEVICE_INGEST_FLUSH", "1") != "0":
+        # per-request durability as on the host path: the deferred mirror
+        # rows and journal entries land before the response. Their copy
+        # to the host started at the add, so this waits for its end;
+        # IMATCH_DEVICE_INGEST_FLUSH=0 leaves them to the next drain point
+        with METRICS.timer("ingest.flush"):
+            state.store.flush()
     _reap_orphan_saves(state, results, ids, save_futs, save_ext)
     return results
 

@@ -6,6 +6,8 @@ on the state's device unless one is passed), the store (loaded from the
 snapshot and journal under ``data_dir`` unless ``autoload=False``) and
 the image metadata mirror hydrated from it, the saved filters
 (``filters.json``) and the back-fill progress dict, with no segmenter.
+The store, built or loaded, reads IMATCH_COALESCE (and the other store
+settings) from the environment, as the JAX store does.
 ``snapshot`` is the durability point after an upload and ``reset``
 empties the app, its filters included.
 """

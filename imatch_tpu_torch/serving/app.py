@@ -1,20 +1,28 @@
-"""REST API application — the reference app's v2 contract, the routes
-ported so far.
+"""REST API application — the reference app's v2 contract.
 
-Counterpart of ``imatch_tpu/serving/app.py`` ``create_app`` for
-``/api/upload``, ``/api/upload-folder``, ``/api/search/text`` (POST and
-GET), ``/api/search/image``, ``/api/search/multimodal``, ``/api/images``,
-``/api/image/{id}``, ``PUT /api/metadata/{id}``, the filter routes
-(``GET``/``POST /api/filters``, ``POST /api/filters/batch``, ``DELETE
-/api/filters/{filter_query}``, ``GET /api/filter-progress``; a new filter
-is back-filled over every stored image in a background task),
-``/api/reset`` and ``/api/health``, with the same responses (ids, 409 on a
-duplicate, 422 for string fields sent as file parts, ``limit=0`` -> up to
-1000, the folder's per-file statuses and counts, the progress records).
-The other routes of the JAX app answer 501 and name the ROADMAP.md item
-that will bring them.
+Counterpart of ``imatch_tpu/serving/app.py`` ``create_app``, every route
+of it: ``/api/upload``, ``/api/upload-folder``, ``/api/search/text`` (POST
+and GET), ``/api/search/image``, ``/api/search/multimodal``, the batched
+``/api/search/batch`` (JSON, at most 256 queries) and
+``/api/search/image-batch``, ``/api/images``, ``/api/image/{id}``, ``PUT
+/api/metadata/{id}``, the filter routes (``GET``/``POST /api/filters``,
+``POST /api/filters/batch``, ``DELETE /api/filters/{filter_query}``,
+``GET /api/filter-progress``; a new filter is back-filled over every
+stored image in a background task), ``/api/reset``, ``/api/health``, the
+legacy ``/search`` (text, image or multimodal by its inputs, with
+``enhance_with_caption``) and ``/upload-samples``, ``/api/metrics``,
+``/api/profile/start`` and ``/stop`` (409 on misuse), and the web UI at
+``/`` and ``/manage`` (serving/ui.py). The responses are the JAX app's
+(ids, 409 on a duplicate, 422 for string fields sent as file parts and for
+malformed batches, ``limit=0`` -> up to 1000, per-file statuses and counts,
+progress records).
 
-Uploads decode with PIL, a folder's files on a thread pool: the JAX app's
+At start a background thread warms the serving path (IMATCH_WARMUP,
+default on, as in JAX): the towers at B = 1 and a store query at each k
+and Q bucket, so the kernels are built and loaded and the first request
+pays neither.
+
+Uploads decode with PIL, a batch's files on a thread pool: the JAX app's
 loader takes this path where its C++ decoder is not built, and both give
 the same pixels for lossless formats. A new upload, a folder with at
 least one success and a metadata edit end at ``state.snapshot()``, as in
@@ -27,6 +35,7 @@ from __future__ import annotations
 import io
 import logging
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
@@ -40,6 +49,9 @@ from imatch_tpu_torch.pipeline.filters import passes_filters
 from imatch_tpu_torch.pipeline.ingest import process_batch, process_image
 from imatch_tpu_torch.pipeline.state import AppState
 from imatch_tpu_torch.serving.asgi import App, JSONResponse, UploadFile
+from imatch_tpu_torch.serving.ui import register_ui
+from imatch_tpu_torch.utils import profiler
+from imatch_tpu_torch.utils.metrics import METRICS
 
 logger = logging.getLogger("imatch.api")
 
@@ -49,20 +61,6 @@ CORS_ORIGINS = [
     "http://localhost:8000",
     "*",
 ]
-
-# Routes of the JAX app that later slices bring, with the ROADMAP item.
-_LATER_ROUTES = [
-    ("POST", "/api/search/batch", "Queue 1 step 7 (the remaining routes)"),
-    ("POST", "/api/search/image-batch", "Queue 1 step 7 (the remaining routes)"),
-    ("POST", "/search", "Queue 1 step 7 (the remaining routes)"),
-    ("POST", "/upload-samples", "Queue 1 step 7 (the remaining routes)"),
-    ("GET", "/api/metrics", "Queue 1 step 13 (operations surface)"),
-    ("POST", "/api/profile/start", "Queue 1 step 13 (operations surface)"),
-    ("POST", "/api/profile/stop", "Queue 1 step 13 (operations surface)"),
-    ("GET", "/", "Queue 1 step 7 (the remaining routes: web UI)"),
-    ("GET", "/manage", "Queue 1 step 7 (the remaining routes: web UI)"),
-]
-
 
 class _FieldTypeError(ValueError):
     def __init__(self, field: str):
@@ -105,6 +103,23 @@ def _decode_rgb(content: bytes) -> np.ndarray:
         return np.asarray(im.convert("RGB"))
 
 
+def _decode_all(contents: List[bytes]) -> list:
+    """Decode on a thread pool; each entry is the RGB array or the
+    exception that its bytes raised."""
+    if not contents:
+        return []
+    workers = min(8, os.cpu_count() or 1, len(contents))
+    with ThreadPoolExecutor(workers, thread_name_prefix="imatch-decode") as pool:
+        futures = [pool.submit(_decode_rgb, c) for c in contents]
+    out = []
+    for fut in futures:
+        try:
+            out.append(fut.result())
+        except Exception as e:
+            out.append(e)
+    return out
+
+
 def _parse_bool(v, default=False) -> bool:
     if v is None:
         return default
@@ -119,17 +134,29 @@ def apply_search_filters(results: List[dict], filters: List[str]) -> List[dict]:
     return [r for r in results if passes_filters(r, filters)]
 
 
-def _later(item: str):
-    def handler(req, **_):
-        return JSONResponse(
-            {
-                "success": False,
-                "error": f"not ported to imatch_tpu_torch yet: ROADMAP.md {item}",
-            },
-            501,
-        )
-
-    return handler
+def _warmup(state: AppState):
+    """Run the hot request shapes once on a background thread: one text
+    and one 64x64 image through the towers, and, over a non-empty store,
+    every k bucket of the limit select, one search, one Q = 16 text batch
+    and the coalescer's Q buckets. The kernels are built and loaded there
+    (nvcc, once per source) and the allocator holds the buffers, so the
+    first user request pays neither."""
+    t0 = time.time()
+    try:
+        emb = state.get_embedder()
+        emb.embed_texts(["warmup"])
+        emb.embed_images([np.zeros((64, 64, 3), np.uint8)])
+        if state.store.count():
+            state.store.warm()
+            state.store.query([emb.embed_text("warmup")], n_results=1)
+            state.store.query(emb.embed_texts_device(["warmup"] * 16), n_results=10)
+            coal = state.store._coalescer  # one read
+            if coal is not None:
+                qc = [b for b in (2, 4, 8, 16, 32, 64) if b <= coal.max_batch]
+                state.store.warm(n_results_list=(10,), q_counts=qc)
+        logger.info("warmup done in %.1fs", time.time() - t0)
+    except Exception as e:
+        logger.warning("warmup failed: %s", e)
 
 
 def create_app(
@@ -140,6 +167,9 @@ def create_app(
     app = App(cors_origins=CORS_ORIGINS)
     app.state = state
     app.mount_static("/static", state.static_dir)
+
+    if _parse_bool(os.environ.get("IMATCH_WARMUP"), default=True):
+        app.add_background_task(_warmup, state)
 
     @app.post("/api/upload")
     def upload(req):
@@ -188,19 +218,15 @@ def create_app(
             else:
                 todo.append(f)
         images, names, raws = [], [], []
-        if todo:
-            workers = min(8, os.cpu_count() or 1, len(todo))
-            with ThreadPoolExecutor(workers, thread_name_prefix="imatch-decode") as pool:
-                futures = [pool.submit(_decode_rgb, f.content) for f in todo]
-                for f, fut in zip(todo, futures):
-                    try:
-                        images.append(fut.result())
-                        names.append(f.filename)
-                        raws.append(f.content)
-                    except Exception as e:
-                        results.append(
-                            {"filename": f.filename, "status": "error", "reason": f"Cannot open image: {e}"}
-                        )
+        for f, img in zip(todo, _decode_all([f.content for f in todo])):
+            if isinstance(img, Exception):
+                results.append(
+                    {"filename": f.filename, "status": "error", "reason": f"Cannot open image: {img}"}
+                )
+            else:
+                images.append(img)
+                names.append(f.filename)
+                raws.append(f.content)
         batch = process_batch(
             state, images, names, remove_bg=_parse_bool(form.get("remove_bg")), raw_bytes=raws
         )
@@ -281,6 +307,69 @@ def create_app(
             state, _open_upload(file), query, weight_image=weight_image, limit=limit
         )
         return {"results": apply_search_filters(results, filters)}
+
+    @app.post("/api/search/batch")
+    def search_batch(req):
+        """Batched text search: JSON ``{"queries": [...], "limit": 10,
+        "filters": [...]}`` -> ``{"results": [[...], ...]}``, one row per
+        query shaped like /api/search/text's results, from one tower call
+        and one store query."""
+        try:
+            body = req.json()
+        except Exception:
+            return JSONResponse({"success": False, "error": "JSON body required"}, 422)
+        queries = body.get("queries") if isinstance(body, dict) else None
+        if not isinstance(queries, list) or not all(isinstance(q, str) for q in queries):
+            return JSONResponse(
+                {"success": False, "error": "queries must be a list of strings"}, 422
+            )
+        if len(queries) > 256:
+            return JSONResponse({"success": False, "error": "at most 256 queries per batch"}, 422)
+        filters = body.get("filters") or []
+        if not isinstance(filters, list) or not all(isinstance(f, str) for f in filters):
+            return JSONResponse(
+                {"success": False, "error": "filters must be a list of strings"}, 422
+            )
+        limit = _parse_int(body.get("limit"), 10)
+        # per query as /api/search/text: an empty query WITH filters lists
+        # every image newest first; the others share one batched search
+        rows: list = [None] * len(queries)
+        embed_idx = [i for i, q in enumerate(queries) if q.strip() or not filters]
+        embedded = search_mod.search_by_text_batch(
+            state, [queries[i] for i in embed_idx], limit=limit
+        )
+        for i, r in zip(embed_idx, embedded):
+            rows[i] = r
+        listing = None
+        for i in range(len(queries)):
+            if rows[i] is None:
+                if listing is None:  # one lock and sort for every empty query
+                    listing = search_mod.get_all_images_with_limit(state, limit=limit)
+                rows[i] = [dict(md) for md in listing]
+        return {"results": [apply_search_filters(r, filters) for r in rows]}
+
+    @app.post("/api/search/image-batch")
+    def search_image_batch(req):
+        """Batched image search: multipart ``files`` (repeated), ``limit``,
+        ``filters`` -> ``{"results": [[...], ...]}``, one row per file in
+        order, shaped like /api/search/image's results."""
+        form = req.form()
+        files = [f for f in form.getlist("files") if isinstance(f, UploadFile)]
+        if not files:
+            return JSONResponse({"success": False, "error": "files field required"}, 422)
+        if len(files) > 256:
+            return JSONResponse({"success": False, "error": "at most 256 files per batch"}, 422)
+        filters = form.getlist("filters")
+        limit = _parse_int(form.get("limit"), 10)
+        images = []
+        for f, img in zip(files, _decode_all([f.content for f in files])):
+            if isinstance(img, Exception):
+                return JSONResponse(
+                    {"success": False, "error": f"Cannot open image {f.filename!r}: {img}"}, 422
+                )
+            images.append(Image.fromarray(img))
+        rows = search_mod.search_by_image_batch(state, images, limit=limit)
+        return {"results": [apply_search_filters(r, filters) for r in rows]}
 
     @app.get("/api/images")
     def get_images(req):
@@ -399,6 +488,73 @@ def create_app(
             return JSONResponse({"success": False, "error": str(e)}, 500)
         return {"success": True}
 
+    # -- legacy capabilities -------------------------------------------------
+
+    @app.post("/search")
+    def unified_search(req):
+        """Text, image or multimodal search, chosen by which inputs are
+        present; ``enhance_with_caption`` appends the query image's caption
+        to a multimodal query."""
+        form = req.form()
+        file = form.get("file")
+        try:
+            query = (_form_str(form, "query") or "").strip()
+        except _FieldTypeError as e:
+            return JSONResponse({"success": False, "error": str(e)}, 422)
+        weight_image = _parse_float(form.get("weight_image"), 0.5)
+        limit = _parse_int(form.get("limit"), 10)
+        filters = form.getlist("filters")
+        enhance = _parse_bool(form.get("enhance_with_caption"))
+        has_image = isinstance(file, UploadFile) and file.content
+        if has_image and query:
+            image = _open_upload(file)
+            if enhance:
+                query = search_mod.enhance_query_with_caption(state, image, query)
+            results = search_mod.search_multimodal(
+                state, image, query, weight_image=weight_image, limit=limit
+            )
+            mode = "multimodal"
+        elif has_image:
+            results = search_mod.search_by_image(state, _open_upload(file), limit=limit)
+            mode = "image"
+        elif query:
+            results = search_mod.search_by_text(state, query, limit=limit)
+            mode = "text"
+        else:
+            return JSONResponse({"success": False, "error": "provide a query or an image"}, 422)
+        return {"mode": mode, "results": apply_search_filters(results, filters)}
+
+    @app.post("/upload-samples")
+    def upload_samples(req):
+        """Bulk ingest of a samples directory: IMATCH_SAMPLES_DIR, or
+        ``images/`` under the app root. An undecodable file is reported as
+        an error of its own."""
+        samples_dir = os.environ.get("IMATCH_SAMPLES_DIR", os.path.join(state.root, "images"))
+        if not os.path.isdir(samples_dir):
+            return JSONResponse({"success": False, "error": "no samples directory"}, 404)
+        files = sorted(os.listdir(samples_dir))
+        contents = []
+        for f in files:
+            with open(os.path.join(samples_dir, f), "rb") as fh:
+                contents.append(fh.read())
+        images, names, failed_decode = [], [], []
+        for f, img in zip(files, _decode_all(contents)):
+            if isinstance(img, Exception):
+                failed_decode.append({"filename": f, "status": "error", "error": str(img)})
+            else:
+                images.append(img)
+                names.append(f)
+        results = process_batch(state, images, names) + failed_decode
+        state.snapshot()
+        return {
+            "success": True,
+            "total": len(files),
+            "successful": sum(r["status"] == "success" for r in results),
+            "skipped": sum(r["status"] == "skipped" for r in results),
+            "failed": sum(r["status"] == "error" for r in results),
+            "results": results,
+        }
+
     @app.get("/api/health")
     def health(req):
         return {
@@ -408,7 +564,28 @@ def create_app(
             "model": state.embedder.cfg.name if state.embedder else None,
         }
 
-    for method, path, item in _LATER_ROUTES:
-        app.route(path, [method])(_later(item))
+    # -- observability -------------------------------------------------------
 
+    @app.get("/api/metrics")
+    def metrics(req):
+        snap = METRICS.snapshot()
+        snap["index_count"] = state.store.count()
+        snap["index"] = state.store.stats()
+        return snap
+
+    @app.post("/api/profile/start")
+    def profile_start(req):
+        try:
+            return {"success": True, "trace_dir": profiler.start_trace(req.form().get("log_dir"))}
+        except RuntimeError as e:
+            return JSONResponse({"success": False, "error": str(e)}, 409)
+
+    @app.post("/api/profile/stop")
+    def profile_stop(req):
+        try:
+            return {"success": True, "trace_dir": profiler.stop_trace()}
+        except RuntimeError as e:
+            return JSONResponse({"success": False, "error": str(e)}, 409)
+
+    register_ui(app)  # GET / (search) and GET /manage
     return app

@@ -576,3 +576,115 @@ def test_captured_state_survives_patches_on_card(cuda):
     s._release_snapshot(dc)
     assert s.query(new[:1], n_results=1)["ids"] == [["b0"]]
     assert "a7" not in s.query(_unit_rows(500, 0)[7:8], n_results=3)["ids"][0]
+
+
+# -- the serving surface's shapes: batched queries, device-resident adds ------
+
+
+@pytest.mark.parametrize("nq", [2, 3, 5, 9, 16, 17, 64, 256])
+def test_tile_max_bf16_at_serving_query_counts(cuda, nq):
+    """K1 on the tensor cores at the query counts of /api/search/batch,
+    the coalescer and warm (powers of two, and the odd counts between),
+    over 768-wide rows in 512-row tiles."""
+    corpus, valid = _unit_corpus(16384, 768, cuda, seed=100 + nq)
+    valid[512:1024] = False  # a tile with no valid row
+    scoring = corpus.bfloat16()
+    g = torch.Generator(device=cuda).manual_seed(nq)
+    qs = torch.randn((nq, 768), generator=g, device=cuda)
+    qs = (qs / qs.norm(dim=1, keepdim=True)).bfloat16()
+    before = (tile_max.launches, tile_max.mma_launches)
+    got = tile_max(qs, scoring, valid, 512)
+    torch.cuda.synchronize()
+    assert (tile_max.launches, tile_max.mma_launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, tile_max_plain(qs, scoring, valid, 512), rtol=1e-5, atol=1e-5)
+    assert (got[:, 1] == NEG_INF).all()
+
+
+@pytest.mark.parametrize("nq", [2, 16, 33])
+def test_tile_max_int8_at_serving_query_counts(cuda, nq):
+    corpus, valid = _unit_corpus(16384, 768, cuda, seed=200 + nq)
+    dc = prepare_device_corpus(corpus, valid, tile_n=512, score_dtype=torch.int8, device=cuda)
+    qi, qscale = _int8_queries(corpus[:nq] * 0.9 + 0.01, dc.scoring.shape[1])
+    before = tile_max_int8.launches
+    got = tile_max_int8(qi, dc.scoring, qscale, dc.scale, dc.valid, 512)
+    torch.cuda.synchronize()
+    assert tile_max_int8.launches == before + 1
+    assert torch.equal(got, tile_max_int8_plain(qi, dc.scoring, qscale, dc.scale, dc.valid, 512))
+
+
+def _numpy_int8_rows(rows):
+    """The int8 tier's row quantization in numpy: scale = amax * fp32(1/127)
+    (1 for a zero row), codes = clip(round-half-even(x / scale), -127, 127)."""
+    import numpy as np
+
+    amax = np.abs(rows).max(axis=1)
+    scale = np.where(amax > 0, amax * np.float32(1.0 / 127.0), np.float32(1.0)).astype(np.float32)
+    codes = np.clip(np.round(rows / scale[:, None]), -127, 127).astype(np.int8)
+    return codes, scale
+
+
+def test_device_append_int8_codes_equal_numpy(cuda):
+    """Rows appended from a tensor on the card are quantized there; their
+    codes and scales equal the numpy quantization bit for bit."""
+    import numpy as np
+
+    from imatch_tpu_torch.index.store import VectorStore
+
+    s = VectorStore(dim=768, engine="tilemax", score_dtype="int8", device=cuda)
+    s.add([f"a{i}" for i in range(600)], _unit_rows(600, 0))
+    s.query(_unit_rows(1, 9), n_results=3)
+    rows = _unit_rows(64, 1) * np.float32(1.7)
+    rows[3] = 0.0  # a zero row: scale 1
+    s.add([f"b{i}" for i in range(64)], torch.from_numpy(rows).to(cuda))
+    assert s.stats()["patched_mutations"] == 1
+    state = s._device_corpus[1]
+    codes, scale = _numpy_int8_rows(rows)
+    np.testing.assert_array_equal(state.scoring[600:664, :768].cpu().numpy(), codes)
+    np.testing.assert_array_equal(state.scale[600:664].cpu().numpy(), scale)
+    assert not state.scoring[600:664, 768:].any()
+
+
+@pytest.mark.parametrize("engine,dtype", _PATCH_ENGINES)
+def test_device_add_patch_equals_fresh_build_on_card(cuda, engine, dtype):
+    """A device-resident add (a tensor on the card) patches the built state
+    with no rebuild; after the flush the host mirror holds the card's rows
+    bit for bit, and the patched state equals a fresh build of the mirror
+    tensor for tensor."""
+    import numpy as np
+
+    from imatch_tpu_torch.index.store import VectorStore
+
+    s = VectorStore(dim=768, engine=engine, score_dtype=dtype, device=cuda)
+    s.add([f"a{i}" for i in range(3000)], _unit_rows(3000, 0))
+    s.query(_unit_rows(1, 9), n_results=3)
+    rows = torch.from_numpy(_unit_rows(64, 1)).to(cuda)
+    s.add([f"b{i}" for i in range(64)], rows)
+    st = s.stats()
+    assert (st["patched_mutations"], st["rebuild_mutations"], st["pending_host_syncs"]) == (1, 0, 1)
+    s.flush()
+    assert s.stats()["pending_host_syncs"] == 0
+    np.testing.assert_array_equal(s._emb[3000:3064], rows.cpu().numpy())
+    _states_equal(s._device_corpus[1], s._build_device(s._emb.copy(), s._alive.copy())[1])
+    q = _unit_rows(3, 4)
+    fresh = VectorStore(dim=768, engine=engine, score_dtype=dtype, device=cuda)
+    g = s.get(include=["embeddings"])
+    fresh.add(g["ids"], g["embeddings"])
+    assert s.query(q, n_results=10)["ids"] == fresh.query(q, n_results=10)["ids"]
+
+
+def test_batched_store_query_equals_single_on_card(cuda):
+    """A (Q, d) query (five rows, no padding, K1 on the tensor cores)
+    gives each row the ids and scores of its own single query."""
+    import numpy as np
+
+    from imatch_tpu_torch.index.store import VectorStore
+
+    s = VectorStore(dim=768, device=cuda)
+    s.add([f"a{i}" for i in range(20000)], _unit_rows(20000, 0))
+    q = torch.from_numpy(_unit_rows(20000, 0)[:5] * 0.7 + _unit_rows(5, 5) * 0.3).to(cuda)
+    q = q / q.norm(dim=1, keepdim=True)
+    got = s.query(q, n_results=10, include=["distances"])
+    for i in range(5):
+        one = s.query(q[i : i + 1], n_results=10, include=["distances"])
+        assert got["ids"][i] == one["ids"][0]
+        np.testing.assert_array_equal(got["distances"][i], one["distances"][0])
