@@ -25,7 +25,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    same corpus at Q = 1, 8, 16.
 5. K3 (row quantize) and K4 (LayerNorm + quantize) against their plain
    versions at the W8A8 image tower's shapes (rows B x 257 for B = 1, 32,
-   64; D 1024 and 4096), bf16 and fp32, with a zero row.
+   64; D 1024 and 4096), bf16 and fp32, and at the W8A8 Moondream
+   prefill's (rows B x 760 for B = 1 and 16; K3 at D 2048 and 8192, K4 at
+   D 2048), bf16, each with a zero row.
 5b. K5 (int4 tile max, on the tensor cores) and K6 (tile max over a
    transposed corpus) against their plain versions at their scripts'
    shapes: 8 queries over 2^20 rows of 512 int4 codes, timed at tiles 512,
@@ -94,6 +96,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    enhance_with_caption, whose results are /api/search/multimodal's on
    the query extended by the image's caption. The CLIP slices before it
    run with IMATCH_CAPTIONER=null.
+8c. The ninth slice's background removal: U2-Net at u2net (full width,
+   seeded random weights, bf16): one frame's alpha from the fp32 module on
+   the card against the CPU's (within 1 level) and from the bf16 module
+   against the fp32 one (``U2_BF16_ALPHA_BOUND``); predict_mask and an
+   8-frame remove_background_batch chunk timed; then over HTTP with
+   IMATCH_SEGMENTER=u2net and slice 1's embedder: /api/upload and
+   /api/upload-folder (20 frames in two geometries) with remove_bg (RGBA
+   files, one forward a geometry chunk, host pHash ids), and
+   /api/search/image, /api/search/multimodal and /api/search/image-batch
+   with remove_bg, equal to the same searches on the cutouts' RGB; every
+   cutout must succeed, and the K1 and K2 launches are held to the engine
+   and tower calls that hooks count.
+8d. The int8 Moondream modes at moondream2 (full width and depth, phase
+   8b's seeded weights), each built from its environment beside a bf16
+   service: IMATCH_MD_QUANT=int8 (prefill logits cosine against bf16),
+   + IMATCH_MD_CACHE=int8 (the first decode step against the bf16 cache,
+   segmented decode equal to one loop), + IMATCH_MD_ACT=int8 (the W8A8
+   prefill against weight-only int8, cache-free equal to cache-building, a
+   64-image yes/no chunk's answers beside weight-only int8's), captions and
+   yes/no answers served in each mode, the prefill at B = 1 and 16, a
+   decode step and the yes/no chunk timed in each mode and in bf16; the
+   W8A8 service's caption and yes/no chunk hold K4 to one launch and K3 to
+   two a layer a prefill.
 9. A cut-depth vit-b32 tower on the card against the same weights on the
    CPU, and the W8A8 longclip tower against the fp32 tower on the card.
 10. The two experiment entry points, python -m imatch_tpu_torch.scripts.
@@ -103,8 +128,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 11. Every kernel's device time from torch.profiler traces (``device_ms``
    and ``device_pct_of_bound``): K2 and SDPA at each phase-3 case
    (``library_device_ms``), and every other kernels-line entry at its own
-   shape (K1 Q = 1 and 16, K1 int8, K3 and K4 at 16448 bf16 rows, K5 at
-   each tile, K6). Events of back-to-back calls time the host where it
+   shape (K1 Q = 1 and 16, K1 int8, K3 and K4 at 16448 bf16 rows and at
+   the Moondream prefill's 760 and 12160, K5 at each tile, K6). Events of back-to-back calls time the host where it
    launches more slowly than the card runs (K2 at B = 1). Late, because a
    profiler session slows the host's later launches.
 12. POST /api/profile/start and /stop on a small app (vit-b32): 409s on
@@ -529,15 +554,21 @@ def k34_case(kernel, rows, d, dtype, seed=0) -> dict:
         "bound_by": bound_by,
     }
     log(f"{kernel} " + json.dumps(row))
-    if rows == 64 * 257 and dtype == torch.bfloat16:
+    if rows in (64 * 257, *MD_PREFILL_ROWS) and dtype == torch.bfloat16:
         row["_trace"] = (run, kernel)
     return row
+
+
+# the Moondream W8A8 prefill's rows, B x (1 + 729 + prompt), at B = 1 and 16
+MD_PREFILL_ROWS = (760, 16 * 760)
 
 
 def phase_k34() -> list:
     """K3 at D 1024 (attention output) and 4096 (MLP activation), K4 at
     D 1024 (ln1, ln2), at B x 257 rows for one upload (B = 1), a tower
-    call of 32 and the bulk-ingest chunk of 64."""
+    call of 32 and the bulk-ingest chunk of 64; then the Moondream W8A8
+    prefill's, bf16 at B = 1 and 16: K3 at D 2048 (the attention output)
+    and 8192 (gelu(fc1)), K4 at D 2048 (the residual stream)."""
     import torch
 
     rows = []
@@ -545,6 +576,9 @@ def phase_k34() -> list:
         for r in (257, 32 * 257, 64 * 257):
             for kernel, d in (("K3", 1024), ("K3", 4096), ("K4", 1024)):
                 rows.append(k34_case(kernel, r, d, dtype, seed=r + d))
+    for r in MD_PREFILL_ROWS:
+        for kernel, d in (("K3", 2048), ("K3", 8192), ("K4", 2048)):
+            rows.append(k34_case(kernel, r, d, torch.bfloat16, seed=r + d + 1))
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"K3/K4 disagree with their plain versions in {len(bad)} cases")
@@ -2763,6 +2797,417 @@ def phase_moondream(embedder, device="cuda", config=MD_CONFIG) -> dict:
     return {"launches": launches["K2"], "tower": tower, "decode": decode, "stages": stages, "http": times}
 
 
+# -- phase 8c ----------------------------------------------------------------
+
+U2_CONFIG = "u2net"
+U2_FOLDER = ((12, 240, 320), (8, 200, 300))  # forwards of 8 + 4, and of 8
+U2_QUERIES = 3  # frames of /api/search/image-batch
+# bf16 against fp32 alpha on the card, in uint8 levels: the largest
+# difference and the mean over the frame, pinned at about twice and eight
+# times the first reading at u2net (27 and 0.0126 levels; PERF.md section 5)
+U2_BF16_ALPHA_BOUND = (64, 0.1)
+
+
+def _u2_frames(n, h, w, seed):
+    """``n`` photo-like frames whose pHash margin clears 32, so that the
+    device hash of their geometry bucket is PIL's (``_phash_margin``)."""
+    out = []
+    while len(out) < n:
+        frame = photo_frame(seed, h, w)
+        if _phash_margin(frame) > 32.0:
+            out.append(frame)
+        seed += 1
+    return out
+
+
+def u2_mask_check(config, device):
+    """One 240x320 frame's alpha: the fp32 module on the card against the
+    same seed's fp32 module on the CPU (within 1 level), and the served
+    bf16 module against the fp32 one on the card (within
+    ``U2_BF16_ALPHA_BOUND``); the saliency's range on the frame beside
+    them (the min-max normalisation divides by it). Returns the readings,
+    the served segmenter and the frame."""
+    import numpy as np
+    import torch
+
+    from imatch_tpu_torch.models.u2net.bridge import init_random
+    from imatch_tpu_torch.models.u2net.runtime import SEED, U2NetSegmenter
+
+    frame = photo_frame(9100, 240, 320)
+    served = U2NetSegmenter(config=config, device=device)
+    fp32 = U2NetSegmenter(config=config, device=device)
+    fp32.model = init_random(fp32.cfg, seed=SEED, device=device, dtype=torch.float32)
+    cpu = U2NetSegmenter(config=config, device="cpu")
+    a16, a32, a_cpu = (s.remove_background(frame)[..., 3].astype(int) for s in (served, fp32, cpu))
+    with torch.no_grad():
+        sal = fp32.model(fp32._model_inputs_batch([frame]))
+    out = {
+        "config": config,
+        "served_dtype": str(served.dtype).replace("torch.", ""),
+        "saliency_range": float(sal.max() - sal.min()),
+        "fp32_card_vs_cpu_max_levels": int(np.abs(a32 - a_cpu).max()),
+        "fp32_card_vs_cpu_differing": float((a32 != a_cpu).mean()),
+        "bf16_vs_fp32_max_levels": int(np.abs(a16 - a32).max()),
+        "bf16_vs_fp32_mean_levels": float(np.abs(a16 - a32).mean()),
+        "bf16_vs_fp32_differing": float((a16 != a32).mean()),
+    }
+    del fp32, cpu
+    gc.collect()
+    if out["fp32_card_vs_cpu_max_levels"] > 1:
+        raise AssertionError(f"the fp32 U2-Net on the card strays from the CPU's: {out}")
+    if out["bf16_vs_fp32_max_levels"] > U2_BF16_ALPHA_BOUND[0] or out["bf16_vs_fp32_mean_levels"] > U2_BF16_ALPHA_BOUND[1]:
+        raise AssertionError(f"the bf16 U2-Net strays from the fp32 one: {out}")
+    return out, served, frame
+
+
+@contextlib.contextmanager
+def counted_cutouts(seg):
+    """Successful ``remove_background`` and ``remove_background_batch``
+    calls of ``seg`` (frames each), and its forwards' batch sizes, in a
+    ``with`` block."""
+    out = {"single": 0, "batch_frames": [], "forwards": []}
+    single, batch = seg.remove_background, seg.remove_background_batch
+
+    def counting_single(image):
+        r = single(image)
+        out["single"] += 1
+        return r
+
+    def counting_batch(images):
+        r = batch(images)
+        out["batch_frames"].append(len(r))
+        return r
+
+    hook = seg.model.register_forward_pre_hook(lambda _m, args: out["forwards"].append(int(args[0].shape[0])))
+    seg.remove_background, seg.remove_background_batch = counting_single, counting_batch
+    try:
+        yield out
+    finally:
+        hook.remove()
+        del seg.remove_background, seg.remove_background_batch
+
+
+def phase_u2net(embedder, device="cuda", config=U2_CONFIG) -> dict:
+    """U2-Net background removal at ``config`` (seeded random weights, bf16
+    on the card): the mask checks, ``predict_mask`` and an 8-frame
+    ``remove_background_batch`` chunk timed, then the app over HTTP with
+    IMATCH_SEGMENTER=u2net and ``embedder`` as its CLIP: /api/upload and
+    /api/upload-folder with remove_bg (RGBA files, the folder's forwards a
+    geometry chunk, host pHash ids), and /api/search/image,
+    /api/search/multimodal and /api/search/image-batch with remove_bg
+    against the same searches on the cutouts' RGB. Every cutout must have
+    succeeded (the routes log a failure and keep the frame). Returns the K1
+    and K2 launches of the requests. (tiny-u2 and a small CLIP on the CPU
+    rehearse the same control flow.)"""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
+    from imatch_tpu_torch.ops.kernels.topk import tile_max
+    from imatch_tpu_torch.ops.phash import image_id
+    from imatch_tpu_torch.pipeline.state import AppState
+    from imatch_tpu_torch.serving.app import create_app
+    from imatch_tpu_torch.utils.batching import pow2_bucket
+
+    t0 = time.perf_counter()
+    masks, seg, frame = u2_mask_check(config, device)
+    log("u2net masks: " + json.dumps(masks))
+    chunk = _u2_frames(8, 240, 320, 9200)
+    times = {}
+    _, times["predict_mask_b1_ms"] = _timed(lambda: seg.predict_mask(frame), device)
+    with counted_cutouts(seg) as c:
+        _, times["remove_background_batch_b8_ms"] = _timed(lambda: seg.remove_background_batch(chunk), device)
+    assert c["forwards"] == [8] * len(c["batch_frames"]), c  # one forward a chunk, each call
+    del seg
+    gc.collect()
+
+    root = os.path.join("build", "chip_smoke_u2")
+    shutil.rmtree(root, ignore_errors=True)
+    with environment(IMATCH_SEGMENTER="u2net", IMATCH_U2_CONFIG=config, IMATCH_CAPTIONER="null"):
+        state = AppState(root=root, embedder=embedder, device=device, autoload=False)
+    seg = state.segmenter
+    assert type(seg).__name__ == "U2NetSegmenter" and seg.cfg.name == config, seg
+    assert seg.dtype == (torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32)
+    log(f"u2net: {config} segmenter and {embedder.cfg.name} app ready in {time.perf_counter() - t0:.1f} s")
+    folder = [f for n, h, w in U2_FOLDER for f in _u2_frames(n, h, w, 9300 + h)]
+    files = [("files", f"c{i}.png", _png_bytes(f)) for i, f in enumerate(folder)]
+    host_ids = [image_id(Image.fromarray(f)) for f in folder]
+    upload = photo_frame(9400, 240, 320)
+    queries = [photo_frame(9500 + i, 200 + 20 * i, 260) for i in range(U2_QUERIES)]
+    q_png = [("file", "q.png", _png_bytes(queries[0]))]
+    counts_of = dict(clip_vision=embedder.model.vision, clip_text=embedder.model.text)
+    with ServerThread(create_app(state), port := _free_port()), call_counts(**counts_of) as towers, \
+            engine_calls(state.store) as calls, counted_cutouts(seg) as cut:
+        http = HttpClient(port)
+        _sync(device)
+        flash_mha.launches = tile_max.launches = tile_max.mma_launches = 0
+        status, body, times["upload_remove_bg_ms"] = http.request(
+            "POST", "/api/upload", [("remove_bg", "true")], [("file", "u.png", _png_bytes(upload))]
+        )
+        assert status == 200 and body["success"], body
+        saved = np.asarray(Image.open(body["metadata"]["processed_url"]))
+        assert saved.shape == (240, 320, 4), saved.shape  # an RGBA cutout
+        status, body, times["folder_remove_bg_ms"] = http.request(
+            "POST", "/api/upload-folder", [("remove_bg", "true")], files
+        )
+        assert status == 200 and body["successful"] == len(folder), body
+        assert [r["id"] for r in body["results"]] == host_ids, body
+        for r in body["results"]:
+            f = np.asarray(Image.open(state.image_metadata[r["id"]]["processed_url"]))
+            assert f.ndim == 3 and f.shape[-1] == 4, (r, f.shape)
+        results = {}
+        for route, fields in (
+            ("/api/search/image", [("limit", "10")]),
+            ("/api/search/multimodal", [("query", TEXT_QUERY), ("limit", "10")]),
+        ):
+            status, bg, times[f"{route.split('/')[-1]}_remove_bg_ms"] = http.request(
+                "POST", route, fields + [("remove_bg", "true")], q_png
+            )
+            assert status == 200 and bg["results"], bg
+            results[route] = bg["results"]
+        frames_png = [("files", f"q{i}.png", _png_bytes(q)) for i, q in enumerate(queries)]
+        status, bg, times["image_batch_remove_bg_ms"] = http.request(
+            "POST", "/api/search/image-batch", [("limit", "10"), ("remove_bg", "true")], frames_png
+        )
+        assert status == 200 and len(bg["results"]) == U2_QUERIES, bg
+        results["/api/search/image-batch"] = bg["results"]
+        _sync(device)
+        launches = {
+            "K1": tile_max.launches - tile_max.mma_launches,
+            "K1_mma": tile_max.mma_launches,
+            "K2": flash_mha.launches,
+        }
+        tower_calls, engine_qs, cutouts = dict(towers), list(calls), json.loads(json.dumps(cut))
+        # the same searches on the cutouts' RGB, as a client would send them
+        cut_png = [("file", "qc.png", _png_bytes(seg.remove_background(queries[0])[..., :3]))]
+        for route, fields in (
+            ("/api/search/image", [("limit", "10")]),
+            ("/api/search/multimodal", [("query", TEXT_QUERY), ("limit", "10")]),
+        ):
+            status, plain, _ = http.request("POST", route, fields, cut_png)
+            assert [r["id"] for r in plain["results"]] == [r["id"] for r in results[route]], (route, plain)
+        cut_frames = [
+            ("files", f"qc{i}.png", _png_bytes(seg.remove_background(q)[..., :3])) for i, q in enumerate(queries)
+        ]
+        status, plain, _ = http.request("POST", "/api/search/image-batch", [("limit", "10")], cut_frames)
+        assert [[r["id"] for r in row] for row in plain["results"]] == [
+            [r["id"] for r in row] for row in results["/api/search/image-batch"]
+        ], plain
+        status, metrics, _ = http.request("GET", "/api/metrics")
+    alpha = seg.remove_background(upload)[..., 3].astype(int)
+    upload_alpha_levels = int(np.abs(saved[..., 3].astype(int) - alpha).max())
+    timers = set(metrics["timings"])
+    del state
+    gc.collect()
+    shutil.rmtree(root, ignore_errors=True)
+    chunk_n = int(os.environ.get("IMATCH_U2_CHUNK", "8"))
+    want_forwards = [pow2_bucket(min(chunk_n, n - s), chunk_n) for n, _, _ in U2_FOLDER for s in range(0, n, chunk_n)]
+    want_cutouts = {"single": 1 + 2 + U2_QUERIES, "batch_frames": [len(folder)], "forwards": [1] + want_forwards + [1] * (2 + U2_QUERIES)}
+    nv, nt = embedder.cfg.vision.num_layers, embedder.cfg.text.num_layers
+    expected = {
+        "K1": sum(q == 1 for q in engine_qs),
+        "K1_mma": sum(q >= 2 for q in engine_qs),
+        "K2": nv * tower_calls["clip_vision"] + nt * tower_calls["clip_text"],
+    }
+    if torch.device(device).type != "cuda":  # the CPU runs the plain versions
+        expected = dict.fromkeys(expected, 0)
+    out = {
+        "config": config,
+        "clip": embedder.cfg.name,
+        **times,
+        "upload_alpha_vs_segmenter_max_levels": upload_alpha_levels,
+        "cutouts": cutouts,
+        "expected_cutouts": want_cutouts,
+        "tower_calls": tower_calls,
+        "engine_queries": engine_qs,
+        "launches": launches,
+        "expected_launches": expected,
+    }
+    log("u2net slice: " + json.dumps(out))
+    if cutouts != want_cutouts:
+        raise AssertionError(f"cutouts {cutouts} != what the requests imply {want_cutouts}")
+    if upload_alpha_levels > 1:
+        raise AssertionError(f"the uploaded cutout's alpha is not the segmenter's: {upload_alpha_levels}")
+    if not {"segment", "ingest.segment"} <= timers:
+        raise AssertionError(f"no segment timers in /api/metrics: {sorted(timers)}")
+    if launches != expected or not launches["K2"] and torch.device(device).type == "cuda":
+        raise AssertionError(f"launch counts {launches} != what the requests imply {expected}")
+    return {"launches": launches, "masks": masks, "http": times}
+
+
+# -- phase 8d ----------------------------------------------------------------
+
+MD_INT8_MODES = {  # mode -> its environment, cumulative as the runtime composes them
+    "int8_weights": {"IMATCH_MD_QUANT": "int8"},
+    "int8_cache": {"IMATCH_MD_QUANT": "int8", "IMATCH_MD_CACHE": "int8"},
+    "w8a8": {"IMATCH_MD_QUANT": "int8", "IMATCH_MD_CACHE": "int8", "IMATCH_MD_ACT": "int8"},
+}
+MD_VQA_CHUNK = 64
+# cosine bars: tests/test_moondream.py:224 (int8 weights against bf16 weights),
+# :359 (the first decode step through the int8 cache) and :489 (W8A8
+# against weight-only int8)
+MD_INT8_COSINE = {"int8_weights": 0.999, "int8_cache": 0.999, "w8a8": 0.99}
+MD_W8A8_YES_NO_AGREE = 0.9  # of the 64 answers, against weight-only int8's
+
+
+def _row_cosines(a, b):
+    import torch
+
+    a, b = a.double(), b.double()
+    return ((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).cpu()
+
+
+def md_mode_times(svc, feats1, tokens1, feats16, tokens16, batch64, device) -> dict:
+    """A mode's stages, warm, host ms of calls that end on the host: the
+    caption prefill at B = 1 and 16 (the cache built), one decode step (the
+    mean of a 48-token greedy decode), the yes/no chunk of 64."""
+    from imatch_tpu_torch.models.moondream.generate import greedy_generate
+
+    t = {}
+    _, t["prefill_b1_ms"] = _timed(lambda: svc._prefill(feats1, tokens1, 48), device)
+    _, t["prefill_b16_ms"] = _timed(lambda: svc._prefill(feats16, tokens16, 48), device, 2)
+    state = {}
+
+    def decode():
+        logits, cache, pos = svc._prefill(feats1, tokens1, 48)
+        _sync(device)
+        t0 = time.perf_counter()
+        result = greedy_generate(svc.model, logits, cache, pos, max_new=48)
+        result.tokens.cpu()
+        state["ms"] = (time.perf_counter() - t0) * 1e3
+        state["steps"] = int(result.lengths.max()) - 1  # the first token comes from the prefill
+
+    decode()
+    decode()
+    t["decode_step_ms"] = state["ms"] / max(1, state["steps"])
+    t["decode_steps"] = state["steps"]
+    q = "Yes or No: " + MD_FILTER
+    _, t["yes_no_b64_ms"] = _timed(lambda: svc.query_yes_no_batch(batch64, q), device, 2)
+    return t
+
+
+def phase_md_int8(device="cuda", config=MD_CONFIG) -> dict:
+    """The int8 Moondream modes at ``config`` (full width and depth, the
+    seeded random weights of phase 8b, bf16 compute), each built from its
+    environment beside a bf16 service: int8 weights (prefill logits
+    cosine against bf16, greedy caption tokens), + the int8 cache (the
+    first decode step's cosine against the bf16 cache, segmented equal to
+    monolithic decode), + the W8A8 prefill (cosine against weight-only
+    int8, cache-free equal to cache-building, a 64-image yes/no chunk
+    against weight-only int8's answers), each mode's caption and yes/no
+    served, each stage timed. The W8A8 service's caption and yes/no chunk
+    are its main path: their K3 and K4 launches are held to 2 and 1 a
+    layer a prefill. Returns the launches and the readings. (tiny-md on the
+    CPU rehearses the same control flow.)"""
+    import shutil
+
+    import torch
+
+    from imatch_tpu_torch.models.moondream.configs import get_md_config
+    from imatch_tpu_torch.models.moondream.generate import prefill
+    from imatch_tpu_torch.models.moondream.model import Int8Linear, decoder_forward, embed_tokens, lm_logits
+    from imatch_tpu_torch.models.moondream.runtime import CAPTION_PROMPT, MoondreamTorch
+    from imatch_tpu_torch.ops.kernels.quantize import ln_quant_rows, quant_rows
+
+    root = os.path.join("build", "chip_smoke_md_int8")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = get_md_config(config)
+    vocab, merges = synthetic_gpt2_vocab(os.path.join(root, "vocab"), cfg.text.vocab_size, cfg.text.eos_token_id)
+    base = dict(IMATCH_MD_CONFIG=config, IMATCH_MD_VOCAB=vocab, IMATCH_MD_MERGES=merges)
+    t0 = time.perf_counter()
+    with environment(**base):
+        ref = MoondreamTorch(device=device)
+    encs = ref.encode_image_batch([photo_frame(9600 + i, 240, 320) for i in range(16)])
+    ids = ref._prompt_id_list(CAPTION_PROMPT, max_new=48)
+    feats1, tokens1 = ref._feats(encs[0]), ref._tokens(ids, 1)
+    feats16, tokens16 = ref._batched_feats(encs, 16), ref._tokens(ids, 16)
+    batch64 = (encs * 4)[:MD_VQA_CHUNK]
+    question = "Yes or No: " + MD_FILTER
+    times = {"bf16": md_mode_times(ref, feats1, tokens1, feats16, tokens16, batch64, device)}
+    l_bf16, _, pos = prefill(ref.model, feats16, tokens16, max_new=48)
+    tokens_bf16 = ref._generate(feats1, tokens1, 48).tokens
+    del ref
+    gc.collect()
+    readings = {"prompt_len": pos, "rows_b1": pos, "rows_b16": 16 * pos}
+    svcs = {}
+    for mode, env in MD_INT8_MODES.items():
+        with environment(**base, **env):
+            svcs[mode] = svc = MoondreamTorch(device=device)
+        assert isinstance(svc.model.text.lm_head, Int8Linear) and svc.model.text.lm_head.q.dtype == torch.int8
+        assert svc.act_quant == (mode == "w8a8") and (svc.cache_dtype is not None) == (mode != "int8_weights")
+        times[mode] = md_mode_times(svc, feats1, tokens1, feats16, tokens16, batch64, device)
+    log(f"moondream int8: {config} in 3 modes and bf16, built and timed in {time.perf_counter() - t0:.1f} s")
+
+    w8, c8, a8 = svcs["int8_weights"], svcs["int8_cache"], svcs["w8a8"]
+    # int8 weights against bf16 weights: the same inputs' prefill logits
+    l_w8, _, _ = prefill(w8.model, feats16, tokens16, max_new=48)
+    readings["int8_weights_min_cosine"] = float(_row_cosines(l_w8, l_bf16).min())
+    tok_w8 = w8._generate(feats1, tokens1, 48).tokens
+    readings["int8_weights_caption_tokens_equal_bf16"] = int((tok_w8 == tokens_bf16).cumprod(-1).sum())
+    # the int8 cache against the bf16 cache, on the int8 weights: the first
+    # decode step
+    logits, cache_bf, pos = prefill(c8.model, feats16, tokens16, max_new=48)
+    _, cache_i8, _ = prefill(c8.model, feats16, tokens16, max_new=48, cache_dtype=torch.int8)
+    assert cache_i8.k.dtype == torch.int8 and cache_i8.ks is not None
+    emb = embed_tokens(c8.model, torch.argmax(logits, dim=-1)[:, None])
+    h_bf, _ = decoder_forward(c8.model, emb, cache_bf, pos)
+    h_i8, _ = decoder_forward(c8.model, emb, cache_i8, pos)
+    del cache_bf, cache_i8
+    readings["int8_cache_min_cosine"] = float(_row_cosines(lm_logits(c8.model, h_i8)[:, 0], lm_logits(c8.model, h_bf)[:, 0]).min())
+    mono = c8._generate(feats1, tokens1, 48)
+    seg = c8._generate_segmented(feats1, tokens1, 48, 8)
+    readings["int8_cache_segmented_equals_monolithic"] = bool(
+        torch.equal(mono.tokens, seg.tokens) and torch.equal(mono.lengths, seg.lengths)
+    )
+    # W8A8 against weight-only int8; its cache-free and cache-building prefills
+    l_a8_free, _, _ = prefill(a8.model, feats16, tokens16, use_cache=False, act_quant=True)
+    l_a8, _, _ = prefill(a8.model, feats16, tokens16, max_new=48, act_quant=True)
+    readings["w8a8_min_cosine"] = float(_row_cosines(l_a8, l_w8).min())
+    readings["w8a8_cached_vs_free_max_abs"] = float((l_a8 - l_a8_free).abs().max())
+    readings["w8a8_logit_scale"] = float(l_a8_free.abs().max())
+    answers_w8 = w8.query_yes_no_batch(batch64, question)
+
+    # the W8A8 service's main path: a caption and a yes/no chunk
+    _sync(device)
+    quant_rows.launches = ln_quant_rows.launches = 0
+    caption = a8.caption(encs[0])["caption"]
+    answers_a8 = a8.query_yes_no_batch(batch64, question)
+    _sync(device)
+    launches = {"K3_md": quant_rows.launches, "K4_md": ln_quant_rows.launches}
+    readings["w8a8_yes_no_agree_with_int8_weights"] = sum(a == b for a, b in zip(answers_a8, answers_w8)) / len(answers_w8)
+    readings["w8a8_yes"] = sum(answers_a8)
+    readings["w8a8_caption_chars"] = len(caption)
+    for mode in ("int8_weights", "int8_cache"):
+        svc = svcs[mode]
+        readings[f"{mode}_caption_chars"] = len(svc.caption(encs[0])["caption"])
+        readings[f"{mode}_yes"] = sum(svc.query_yes_no_batch(batch64, question))
+    del svcs, w8, c8, a8
+    gc.collect()
+    shutil.rmtree(root, ignore_errors=True)
+    n = cfg.text.num_layers
+    prefills = 2  # the caption's and the chunk's
+    expected = {"K3_md": 2 * n * prefills, "K4_md": n * prefills}
+    if torch.device(device).type != "cuda":  # the CPU runs the plain versions
+        expected = dict.fromkeys(expected, 0)
+    out = {"config": config, **readings, "times": times, "launches": launches, "expected_launches": expected}
+    log("moondream int8: " + json.dumps(out))
+    for mode, bar in MD_INT8_COSINE.items():
+        if readings[f"{mode}_min_cosine"] < bar:
+            raise AssertionError(f"{mode}: prefill or decode logits stray, cosine {readings[f'{mode}_min_cosine']} < {bar}")
+    if not readings["int8_cache_segmented_equals_monolithic"]:
+        raise AssertionError("segmented decode differs from one loop on the int8 cache")
+    if readings["w8a8_yes_no_agree_with_int8_weights"] < MD_W8A8_YES_NO_AGREE:
+        raise AssertionError(f"W8A8 yes/no answers stray from weight-only int8's: {readings}")
+    if readings["w8a8_cached_vs_free_max_abs"] > 1e-3 * readings["w8a8_logit_scale"]:
+        raise AssertionError(f"the W8A8 cache-free and cache-building prefills disagree: {readings}")
+    if launches != expected:
+        raise AssertionError(f"K3/K4 launches {launches} != 2 and 1 a layer a W8A8 prefill {expected}")
+    return {"launches": launches, "readings": readings, "times": times}
+
+
 def phase_reference() -> None:
     """vit-b32 (depth cut to 2 layers a tower) on the card, bf16 and fp32,
     against the same weights in fp32 on the CPU: per-row cosine of the
@@ -2972,7 +3417,10 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
     scripts for K5, K6 and the tensor-core K1 (exp_pallas_search's Q = 8
     row-major phase); and K2 at the Moondream vision tower's shape, with
     the Moondream slice's launches (phase 8b: its encodes' and its CLIP
-    towers')."""
+    towers'); K3 and K4 at the W8A8 Moondream prefill's 16-image shape,
+    with the launches of phase 8d's W8A8 caption and yes/no chunk. Phase
+    8c's cutout requests add their K1 and K2 launches to the CLIP
+    entries'."""
 
     def pick(table, **want):
         return next(r for r in table if all(r[k] == v for k, v in want.items()))
@@ -3047,6 +3495,24 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
             "(16448, 1024) bf16: ln1/ln2 of a 64-image chunk",
         ),
         (
+            "K3 quant_rows, Moondream W8A8 prefill",
+            pick(k34_rows, kernel="K3", d=8192, rows=MD_PREFILL_ROWS[1], dtype="bfloat16"),
+            "imatch_tpu_torch/csrc/quantize.cu",
+            "imatch_tpu/ops/pallas/quantize.py:74",
+            "K3_md",
+            f"({MD_PREFILL_ROWS[1]}, 8192) bf16: gelu(fc1) of a 16-image moondream2 caption prefill; "
+            "launches: the W8A8 service's caption and yes/no chunk (2 a layer a prefill, D 2048 and 8192)",
+        ),
+        (
+            "K4 ln_quant_rows, Moondream W8A8 prefill",
+            pick(k34_rows, kernel="K4", d=2048, rows=MD_PREFILL_ROWS[1], dtype="bfloat16"),
+            "imatch_tpu_torch/csrc/quantize.cu",
+            "imatch_tpu/ops/pallas/quantize.py:81",
+            "K4_md",
+            f"({MD_PREFILL_ROWS[1]}, 2048) bf16: the residual stream of a 16-image moondream2 caption "
+            "prefill; launches: the W8A8 service's caption and yes/no chunk (1 a layer a prefill)",
+        ),
+        (
             "K5 int4_tile_max",
             k5,
             "imatch_tpu_torch/csrc/int4_tile_max.cu",
@@ -3083,7 +3549,7 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
         entry["device_pct_of_bound"] = row["device_pct_of_bound"]
         if key in ("K2", "K2_md"):
             entry["library_device_ms"] = row["library_device_ms"]
-        if key in ("K3", "K4"):
+        if key in ("K3", "K4", "K3_md", "K4_md"):
             entry["library_note"] = "no single PyTorch call computes a per-row int8 quantize"
         elif "library_note" in row:
             entry["library_note"] = row["library_note"]
@@ -3123,7 +3589,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     launches["K2_md"] = phase_moondream(embedder)["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    u2 = phase_u2net(embedder)["launches"]  # slice 9's cutouts and their searches
+    launches["K1"] += u2["K1"]
+    launches["K2"] += u2["K2"]
     del embedder
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase_md_int8()["launches"])
     gc.collect()
     torch.cuda.empty_cache()
     phase_reference()
@@ -3133,7 +3607,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     script_launches, script_lines = phase_scripts()
     launches.update(script_launches)
-    launches["K1_mma"] += surface["K1_mma"]
+    launches["K1_mma"] += surface["K1_mma"] + u2["K1_mma"]
     traced = [r for rows in (k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows) for r in rows if "_trace" in r]
     phase_device(k2_rows, traced)
     phase_profile()

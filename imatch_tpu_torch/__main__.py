@@ -27,10 +27,19 @@ Env config (the same names as run.py):
   IMATCH_CAPTIONER        auto (default) | moondream | cloud | null
   IMATCH_MD_CONFIG        tiny-md (default) | moondream2 (the captioner)
   IMATCH_MD_CHECKPOINT    a moondream2 checkpoint for real weights
+  IMATCH_MD_QUANT         int8: int8 decoder and LM-head weights (default unset)
+  IMATCH_MD_CACHE         int8: an int8 KV cache with per-slot scales
+  IMATCH_MD_ACT           int8: the W8A8 prefill through K3/K4 (needs
+                          IMATCH_MD_QUANT=int8)
+  IMATCH_SEGMENTER        auto (default: U²-Net only with a checkpoint) |
+                          u2net | null (background removal for remove_bg)
+  IMATCH_U2_CONFIG        u2net (default with a checkpoint) | u2netp | tiny-u2
+  IMATCH_U2_CHECKPOINT    a released u2net.pth state dict
+  IMATCH_U2_CHUNK         frames a segmenter forward in bulk ingest (default 8)
   IMATCH_DEVICE           cuda (default) | cpu
 
 On ``cuda`` the CUDA kernels are built (nvcc, ops/kernels/_build.py) and
-the CLIP and captioner weights loaded before the server starts listening,
+the CLIP, captioner and segmenter weights loaded before the server starts listening,
 so the first request pays neither. The store loads from IMATCH_DATA_DIR at start; a
 restart with the same directory serves the same images. SIGTERM and
 SIGINT compact the journal into a snapshot before exit (status 0, or 1 if

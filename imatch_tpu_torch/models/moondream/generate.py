@@ -11,6 +11,10 @@ once a step, on the host.
 ``vqa_yes_no`` answers a yes/no question with one cache-free prefill and
 a yes-vs-no probability comparison: no decode loop, no KV cache.
 
+The prefill takes the W8A8 products (``act_quant``) and builds an int8
+cache (``cache_dtype=torch.int8``) from its own keys and values; decode
+steps run weight-only, as in JAX.
+
 Every row of a batch has the same prompt length, so the position is one
 int (JAX carries it per row, all rows equal).
 """
@@ -24,6 +28,7 @@ import torch
 from imatch_tpu_torch.models.moondream.model import (
     KVCache,
     MoondreamModel,
+    _quant_kv_cols,
     decoder_forward,
     embed_tokens,
     init_cache,
@@ -39,6 +44,8 @@ def prefill(
     *,
     max_new: int = 0,
     use_cache: bool = True,
+    act_quant: bool = False,
+    cache_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache], int]:
     """Run [BOS; image patches; prompt tokens] through the decoder.
 
@@ -51,8 +58,10 @@ def prefill(
     to the 128-slot bucket just above prompt + max_new instead of max_seq.
     ``use_cache=False``: cache-free, no KV buffers at all (the VQA path
     reads only the logits). The cache is built from the cache-free
-    forward's own keys and values, padded. Returns (last logits (B, V)
-    fp32, cache or None, next position)."""
+    forward's own keys and values, padded; ``cache_dtype`` (default the
+    compute dtype) ``torch.int8`` quantizes them per (B, H, slot), the
+    padded slots at scale 1. ``act_quant``: the W8A8 prefill. Returns (last
+    logits (B, V) fp32, cache or None, next position)."""
     cfg = model.cfg
     b = token_ids.shape[0]
     tok = embed_tokens(model, token_ids)
@@ -60,13 +69,16 @@ def prefill(
     seq = torch.cat([tok[:, :1], img, tok[:, 1:]], dim=1)
     s = seq.shape[1]
     if not use_cache:
-        hidden, _ = decoder_forward(model, seq, None, 0)
+        hidden, _ = decoder_forward(model, seq, None, 0, act_quant=act_quant)
         return lm_logits(model, hidden[:, -1:, :])[:, 0], None, s
     n = cfg.text.max_seq
     if max_new:
         n = min(n, -(-(s + max_new) // 128) * 128)
-    hidden, (ks, vs) = decoder_forward(model, seq, None, 0, collect_kv=True)
-    cache = init_cache(cfg, b, device=ks.device, dtype=ks.dtype, cache_len=n)
+    hidden, (ks, vs) = decoder_forward(model, seq, None, 0, collect_kv=True, act_quant=act_quant)
+    cache = init_cache(cfg, b, device=ks.device, dtype=cache_dtype or ks.dtype, cache_len=n)
+    if cache.ks is not None:
+        ks, cache.ks[:, :, :, :s] = _quant_kv_cols(ks)
+        vs, cache.vs[:, :, :, :s] = _quant_kv_cols(vs)
     cache.k[:, :, :, :s] = ks
     cache.v[:, :, :, :s] = vs
     del ks, vs
@@ -157,10 +169,13 @@ def vqa_yes_no(
     token_ids: torch.Tensor,
     yes_ids: Sequence[int],
     no_ids: Sequence[int],
+    *,
+    act_quant: bool = False,
 ) -> torch.Tensor:
     """Batched yes/no: True where P(yes) > P(no), probabilities summed
-    over the token variants of each answer word. Cache-free prefill."""
-    logits, _, _ = prefill(model, image_embeds, token_ids, use_cache=False)
+    over the token variants of each answer word. Cache-free prefill (W8A8
+    under ``act_quant``)."""
+    logits, _, _ = prefill(model, image_embeds, token_ids, use_cache=False, act_quant=act_quant)
     probs = torch.softmax(logits, dim=-1)
     dev = probs.device
     p_yes = probs[:, torch.as_tensor(list(yes_ids), device=dev)].sum(dim=-1)

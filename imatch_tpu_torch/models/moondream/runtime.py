@@ -29,15 +29,20 @@ the CPU. Environment, as in JAX:
   IMATCH_MD_ALLOW_BYTE_VOCAB=1.
 - IMATCH_MD_SEG (default 8): caption decode in segments of that many
   steps (0: one loop); the tokens are the same either way.
+- IMATCH_MD_QUANT=int8: int8 decoder and LM-head weights
+  (``quantize_int8``, after the cast and the packing, as in JAX).
+- IMATCH_MD_CACHE=int8: the caption and query decode's KV cache in int8
+  with per-slot scales.
+- IMATCH_MD_ACT=int8: the W8A8 prefill (K4 and K3 feeding int8 x int8
+  products) of captions, queries and yes/no chunks; it needs
+  IMATCH_MD_QUANT=int8, and another value than int8, none or unset is a
+  ValueError, as in JAX.
 
 The bulk paths park at ``GATE.checkpoint()`` (runtime/scheduler.py)
 before each encode chunk, decode segment and yes/no chunk, a point where
 the host has already waited for the previous one, so a search during a
 back-fill waits for at most one of them. Each call is timed under the JAX
 package's ``vlm.*`` METRICS names.
-
-Not ported (ROADMAP.md Queue 1 step 10): IMATCH_MD_QUANT=int8,
-IMATCH_MD_ACT=int8 and IMATCH_MD_CACHE=int8 raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -60,7 +65,7 @@ from imatch_tpu_torch.models.moondream.generate import (
     prefill,
     vqa_yes_no,
 )
-from imatch_tpu_torch.models.moondream.model import encode_image_features
+from imatch_tpu_torch.models.moondream.model import encode_image_features, quantize_int8
 from imatch_tpu_torch.ops.resize import resample_matrix
 from imatch_tpu_torch.runtime.scheduler import GATE
 from imatch_tpu_torch.utils.metrics import METRICS
@@ -70,24 +75,24 @@ from imatch_tpu_torch.utils.batching import pad_rows, pow2_bucket, to_rgb
 CAPTION_PROMPT = "\n\nQuestion: Describe this image.\n\nAnswer:"
 SEED = 0  # the random init's, so captions are stable across restarts
 
-_NOT_PORTED = "not ported to imatch_tpu_torch yet: ROADMAP.md Queue 1 step 10 ({})"
-
-
 def _is_yes_no(question: str) -> bool:
     ql = question.lower()
     return "yes or no:" in ql or "yes/no:" in ql
 
 
-def _refuse_int8_modes() -> None:
-    if os.environ.get("IMATCH_MD_QUANT", "") == "int8":
-        raise NotImplementedError(_NOT_PORTED.format("IMATCH_MD_QUANT=int8, int8 decoder weights"))
+def _int8_modes() -> tuple:
+    """(int8 weights, W8A8 prefill, int8 cache) from the environment, with
+    JAX's validation of IMATCH_MD_ACT."""
+    quant = os.environ.get("IMATCH_MD_QUANT", "") == "int8"
     md_act = os.environ.get("IMATCH_MD_ACT", "").strip().lower()
     if md_act not in ("", "none", "int8"):
         raise ValueError(f"IMATCH_MD_ACT={md_act!r}: expected 'int8' or unset")
-    if md_act == "int8":
-        raise NotImplementedError(_NOT_PORTED.format("IMATCH_MD_ACT=int8, the W8A8 prefill"))
-    if os.environ.get("IMATCH_MD_CACHE", "") == "int8":
-        raise NotImplementedError(_NOT_PORTED.format("IMATCH_MD_CACHE=int8, the int8 KV cache"))
+    if md_act == "int8" and not quant:
+        raise ValueError(
+            "IMATCH_MD_ACT=int8 (W8A8 prefill) requires "
+            "IMATCH_MD_QUANT=int8 (the int8 weights it contracts with)"
+        )
+    return quant, md_act == "int8", os.environ.get("IMATCH_MD_CACHE", "") == "int8"
 
 
 class MoondreamTorch:
@@ -100,7 +105,8 @@ class MoondreamTorch:
         params: Optional[Dict] = None,
         device: DeviceLike = None,
     ):
-        _refuse_int8_modes()
+        quant, self.act_quant, int8_cache = _int8_modes()
+        self.cache_dtype = torch.int8 if int8_cache else None
         self.device = resolve_device(device)
         self.dtype = default_compute_dtype(self.device)
         checkpoint = checkpoint or os.environ.get("IMATCH_MD_CHECKPOINT")
@@ -132,6 +138,8 @@ class MoondreamTorch:
                 self.cfg, seed=SEED, device=self.device, dtype=self.dtype,
                 param_dtype=param_dtype, packed=packed,
             )
+        if quant:
+            quantize_int8(self.model)
         vocab = os.environ.get("IMATCH_MD_VOCAB")
         merges = os.environ.get("IMATCH_MD_MERGES")
         if vocab and merges:
@@ -207,15 +215,26 @@ class MoondreamTorch:
     def _tokens(self, ids: list, rows: int) -> torch.Tensor:
         return torch.tensor([ids] * rows, dtype=torch.int64, device=self.device)
 
+    def _prefill(self, feats, tokens, max_new: int):
+        return prefill(
+            self.model, feats, tokens, max_new=max_new,
+            act_quant=self.act_quant, cache_dtype=self.cache_dtype,
+        )
+
+    def _vqa(self, feats, tokens):
+        return vqa_yes_no(
+            self.model, feats, tokens, self._yes_ids, self._no_ids, act_quant=self.act_quant
+        )
+
     def _generate(self, feats, tokens, max_new: int):
-        logits, cache, pos = prefill(self.model, feats, tokens, max_new=max_new)
+        logits, cache, pos = self._prefill(feats, tokens, max_new)
         return greedy_generate(self.model, logits, cache, pos, max_new=max_new)
 
     def _generate_segmented(self, feats, tokens, max_new: int, seg: int):
         """Prefill, then decode in segments of ``seg`` steps, parking at the
         gate before each (every decode step reads ``done`` on the host, so
         the card holds no queued segment there)."""
-        logits, cache, pos = prefill(self.model, feats, tokens, max_new=max_new)
+        logits, cache, pos = self._prefill(feats, tokens, max_new)
         state = init_gen_state(self.model, logits, cache, pos, max_new=max_new)
         for _ in range(-(-max_new // seg)):
             GATE.checkpoint()
@@ -245,7 +264,7 @@ class MoondreamTorch:
             prompt = f"\n\nQuestion: {question}\n\nAnswer:"
             tokens = self._tokens(self._prompt_id_list(prompt, max_new=max_new), 1)
             if _is_yes_no(question):
-                is_yes = vqa_yes_no(self.model, feats, tokens, self._yes_ids, self._no_ids)
+                is_yes = self._vqa(feats, tokens)
                 return {"answer": "Yes" if bool(is_yes[0]) else "No"}
             result = self._run_generate(feats, tokens, max_new)
             return {"answer": self._decode_texts(result, 1)[0]}
@@ -306,9 +325,6 @@ class MoondreamTorch:
                 GATE.checkpoint()  # the last chunk's answers are on the host
                 part = encoded_list[s : s + chunk]
                 b = pow2_bucket(len(part), chunk)
-                ans = vqa_yes_no(
-                    self.model, self._batched_feats(part, b), self._tokens(ids, b),
-                    self._yes_ids, self._no_ids,
-                )
+                ans = self._vqa(self._batched_feats(part, b), self._tokens(ids, b))
                 out.extend(bool(a) for a in ans.cpu().numpy()[: len(part)])
         return out

@@ -5,16 +5,23 @@ Counterparts of ``process_image`` and ``process_batch`` in
 ``imatch_tpu/pipeline/ingest.py``:
 
 - ``process_image``: pHash id -> duplicate check -> caption + vision
-  encoding (cached to ``static/encoded/<id>.npz``) -> save the processed
-  PNG -> description fallback -> caption into ``custom_metadata`` -> CLIP
-  embedding -> the saved filters' answers -> ``store.add``, returning
-  ``(metadata, is_new_upload)``; a duplicate returns the stored metadata.
+  encoding (cached to ``static/encoded/<id>.npz``) -> with ``remove_bg``
+  and a segmenter, the U²-Net cutout -> save the processed PNG (RGBA for a
+  cutout) -> description fallback -> caption into ``custom_metadata`` ->
+  CLIP embedding (of the cutout's RGB) -> the saved filters' answers ->
+  ``store.add``, returning ``(metadata, is_new_upload)``; a duplicate
+  returns the stored metadata.
 - ``process_batch``: bulk ingest through the embedder's fused stream (one
   device upload per geometry chunk gives the pHash ids and the
   embeddings), a batched duplicate check per streamed chunk, saves on a
   host pool overlapping the device work, batched captions and filter
   answers (``encode_image_batch``, ``caption_batch``,
   ``query_yes_no_batch``), one ``store.add``, per-file results. With
+  ``remove_bg`` and a segmenter the embedding input is the cutout, so the
+  fused stream is off: ids come from ``image_ids_batch`` (same-geometry runs
+  hashed on the device), the fresh frames are cut out a geometry chunk at
+  a time (``remove_background_batch``) after the captions, and their RGB is
+  embedded on the plain path. With
   IMATCH_DEVICE_INGEST=1 the fused chunks' embeddings stay on the card:
   they are gathered there into one tensor and ``store.add`` scatters them
   device to device (index/store.py ``_add_device``); the host mirror and
@@ -22,10 +29,11 @@ Counterparts of ``process_image`` and ``process_batch`` in
   (IMATCH_DEVICE_INGEST_FLUSH, default on). Stages are timed under the
   JAX package's ``ingest.*`` METRICS names.
 
-A caption or filter failure is logged and costs the image its caption or
-answers, not its upload, as in the JAX package. With the
-``NullCaptioner`` there is no caption and no filter pass; the port has no
-segmenter, so no background removal.
+A caption, filter or background-removal failure is logged and costs the
+image its caption, answers or cutout (the original frame is kept), not its
+upload, as in the JAX package. With the ``NullCaptioner`` there is no
+caption and no filter pass; without a segmenter ``remove_bg`` only selects
+the PNG save.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import numpy as np
 from PIL import Image
 
 from imatch_tpu_torch.ops.phash import image_id as phash_image_id
+from imatch_tpu_torch.ops.phash import image_ids_batch
 from imatch_tpu_torch.pipeline.captioner import save_encoded
 from imatch_tpu_torch.pipeline.filters import format_filter_query
 from imatch_tpu_torch.pipeline.state import AppState
@@ -164,6 +173,7 @@ def process_image(
     filename: str,
     description: Optional[str] = None,
     custom_metadata: Optional[str] = None,
+    remove_bg: bool = False,
 ) -> Tuple[dict, bool]:
     """Single-image ingest with the reference app's semantics."""
     image = image.convert("RGB") if image.mode != "RGB" else image
@@ -179,8 +189,17 @@ def process_image(
     if encoded is not None:
         save_encoded(state.encoded_dir, img_id, encoded)
 
+    clean_np = image_np
+    if remove_bg and state.segmenter is not None:
+        try:
+            with METRICS.timer("segment"):
+                clean_np = state.segmenter.remove_background(image_np)
+        except Exception as e:
+            logger.exception("background removal error: %s", e)
+            clean_np = image_np
+
     processed_path = os.path.join(state.processed_dir, f"{img_id}.png")
-    Image.fromarray(image_np).save(processed_path)
+    Image.fromarray(clean_np).save(processed_path)
 
     if not description:
         description = os.path.splitext(filename)[0]
@@ -191,7 +210,8 @@ def process_image(
             processed_custom += "\n\n"
         processed_custom += caption
 
-    embedding = state.get_embedder().embed_image(image_np)
+    # RGB for the embedding even where the segmenter produced RGBA
+    embedding = state.get_embedder().embed_image(to_rgb(clean_np))
 
     url = f"/static/processed/{img_id}.png"
     metadata = {
@@ -333,9 +353,10 @@ def process_batch(
     given, are the original files: without background removal the
     processed image is the upload, so (IMATCH_SAVE_ORIGINAL=1, the default)
     renderable originals are stored verbatim under their own extension and
-    the rest as PNGs at zlib level IMATCH_PNG_COMPRESS (default 1). The port
-    has no segmenter, so ``remove_bg`` only selects the PNG save, as it does
-    in the JAX package without one.
+    the rest as PNGs at zlib level IMATCH_PNG_COMPRESS (default 1).
+    ``remove_bg`` with a segmenter stores the RGBA cutouts as PNGs and
+    embeds their RGB (no fused stream, no device-resident ingest); without
+    a segmenter it only selects the PNG save, as in the JAX package.
 
     Returns per-file results ``{"filename", "status": success|skipped|error,
     "id"?, "metadata"?, "message"?, "error"?}``. A stream that fails is
@@ -393,10 +414,11 @@ def process_batch(
     seen_batch = set()
     checked = [False] * n
 
-    def _dup_check(idx_list):
+    def _dup_check(idx_list, submit_saves: bool):
         """Classify hashed images as fresh or duplicate with ONE batched
-        store lookup; fresh files' saves start at once (their frames are
-        final), overlapping the device work of later chunks."""
+        store lookup; with ``submit_saves`` (their frames are final: no
+        cutout pending) fresh files' saves start at once, overlapping the
+        device work of later chunks."""
         new = []
         with METRICS.timer("ingest.dup"):
             todo = []
@@ -419,9 +441,10 @@ def process_batch(
                 seen_batch.add(ids[i])
                 new.append(i)
         fresh.extend(new)
-        with METRICS.timer("ingest.save"):
-            for i in new:
-                _submit_save(i)
+        if submit_saves:
+            with METRICS.timer("ingest.save"):
+                for i in new:
+                    _submit_save(i)
 
     def _host_hash(idxs):
         def one(i):
@@ -432,52 +455,82 @@ def process_batch(
 
         list(pool.map(one, idxs))
 
-    # Device-resident ingest (IMATCH_DEVICE_INGEST=1): the fused chunks'
-    # embeddings stay on the card, and emb_by_idx holds (chunk number,
-    # row) pairs into emb_chunks for their rows; numpy rows otherwise (the
-    # small-bucket tail, the fallbacks). Both forms compose below.
-    device_mode = os.environ.get("IMATCH_DEVICE_INGEST", "0").lower() in ("1", "true", "yes", "on")
+    # Without a cutout the embedding input is the uploaded frame, so ids and
+    # embeddings come from one device upload (the fused stream); with one,
+    # the embedding waits for the segmenter and only the ids come now.
+    use_fused = not (remove_bg and state.segmenter is not None)
+    # Device-resident ingest (IMATCH_DEVICE_INGEST=1, fused path only): the
+    # fused chunks' embeddings stay on the card, and emb_by_idx holds (chunk
+    # number, row) pairs into emb_chunks for their rows; numpy rows
+    # otherwise (the small-bucket tail, the fallbacks). Both forms compose
+    # below.
+    device_mode = use_fused and os.environ.get("IMATCH_DEVICE_INGEST", "0").lower() in (
+        "1", "true", "yes", "on",
+    )
     emb_chunks: List = []
     emb_by_idx: Dict[int, object] = {}
-    try:
-        with METRICS.timer("ingest.stream"):
-            for idxs, ids_c, e in state.get_embedder().ids_and_embed_images_stream(
-                arrays, pool=pool, device_embeddings=device_mode
-            ):
-                if device_mode and not isinstance(e, np.ndarray):
-                    k = len(emb_chunks)
-                    emb_chunks.append(e)
-                    for j, i in enumerate(idxs):
-                        ids[i] = ids_c[j]
-                        emb_by_idx[i] = (k, j)
-                else:
-                    for j, i in enumerate(idxs):
-                        ids[i] = ids_c[j]
-                        emb_by_idx[i] = e[j]
-                _dup_check(idxs)
-    except Exception as e:
-        # Files already streamed keep their ids and embeddings; the rest
-        # hash on the host and embed on the plain path below.
-        process_batch.stream_failures += 1
-        logger.exception("fused ingest stream failed, host fallback: %s", e)
-        _host_hash(
-            [
-                i
-                for i, a in enumerate(arrays)
-                if a is not None and results[i] is None and ids[i] is None
-            ]
-        )
-    # what the stream never reached: dup-check in file order now
-    _dup_check([i for i in range(n) if not checked[i] and results[i] is None])
+    if use_fused:
+        try:
+            with METRICS.timer("ingest.stream"):
+                for idxs, ids_c, e in state.get_embedder().ids_and_embed_images_stream(
+                    arrays, pool=pool, device_embeddings=device_mode
+                ):
+                    if device_mode and not isinstance(e, np.ndarray):
+                        k = len(emb_chunks)
+                        emb_chunks.append(e)
+                        for j, i in enumerate(idxs):
+                            ids[i] = ids_c[j]
+                            emb_by_idx[i] = (k, j)
+                    else:
+                        for j, i in enumerate(idxs):
+                            ids[i] = ids_c[j]
+                            emb_by_idx[i] = e[j]
+                    _dup_check(idxs, submit_saves=True)
+        except Exception as e:
+            # Files already streamed keep their ids and embeddings; the rest
+            # hash on the host and embed on the plain path below.
+            process_batch.stream_failures += 1
+            logger.exception("fused ingest stream failed, host fallback: %s", e)
+            _host_hash(
+                [
+                    i
+                    for i, a in enumerate(arrays)
+                    if a is not None and results[i] is None and ids[i] is None
+                ]
+            )
+    else:
+        with METRICS.timer("ingest.phash"):
+            try:
+                batch_ids = image_ids_batch(arrays, pool=pool, device=state.device)
+            except Exception as e:
+                logger.exception("batched hash failed, per-image fallback: %s", e)
+                _host_hash([i for i, a in enumerate(arrays) if a is not None and results[i] is None])
+            else:
+                for i, id_ in enumerate(batch_ids):
+                    if results[i] is None:
+                        ids[i] = id_
+    # what the stream never reached (every file without it): dup-check in
+    # file order now
+    _dup_check([i for i in range(n) if not checked[i] and results[i] is None], submit_saves=use_fused)
     if not fresh:
         return results
     captions, filter_results = _caption_and_filter_batch(state, fresh, arrays, ids)
+
+    if not use_fused:
+        try:
+            with METRICS.timer("ingest.segment"):
+                # one forward a geometry chunk
+                cut = state.segmenter.remove_background_batch([arrays[i] for i in fresh])
+            for i, rgba in zip(fresh, cut):
+                arrays[i] = rgba
+        except Exception as e:
+            logger.exception("background removal error: %s", e)
 
     missing = [i for i in fresh if i not in emb_by_idx]
     if missing:
         try:
             with METRICS.timer("ingest.embed"):
-                more = state.get_embedder().embed_images([arrays[i] for i in missing])
+                more = state.get_embedder().embed_images([to_rgb(arrays[i]) for i in missing])
             for j, i in enumerate(missing):
                 emb_by_idx[i] = more[j]
         except Exception as e:
@@ -493,6 +546,12 @@ def process_batch(
             if not fresh:
                 _reap_orphan_saves(state, results, ids, save_futs, save_ext)
                 return results
+
+    # saves the stream did not start (cutouts, fallback files) go out now
+    with METRICS.timer("ingest.save"):
+        for i in fresh:
+            if i not in save_futs:
+                _submit_save(i)
 
     # saves land before results return (the metadata URLs point at them);
     # a failed save demotes that file to an error

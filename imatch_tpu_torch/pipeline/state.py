@@ -22,6 +22,7 @@ from typing import Dict, Optional
 
 from imatch_tpu_torch.device import DeviceLike, resolve_device
 from imatch_tpu_torch.index.store import VectorStore
+from imatch_tpu_torch.models.u2net.runtime import get_segmenter
 from imatch_tpu_torch.pipeline import filters as filters_mod
 from imatch_tpu_torch.pipeline.captioner import get_captioner
 from imatch_tpu_torch.pipeline.embedder import ClipEmbedder
@@ -35,6 +36,7 @@ class AppState:
         root: str = ".",
         embedder: Optional[ClipEmbedder] = None,
         captioner=None,
+        segmenter=None,
         device: DeviceLike = None,
         autoload: bool = True,
     ):
@@ -50,7 +52,7 @@ class AppState:
             os.makedirs(d, exist_ok=True)
         self.embedder = embedder
         self.captioner = captioner if captioner is not None else get_captioner(self.device)
-        self.segmenter = None
+        self.segmenter = segmenter if segmenter is not None else get_segmenter(self.device)
         self.lock = threading.RLock()
         self._embedder_lock = threading.Lock()
         self.filter_progress: Dict[str, dict] = {}

@@ -15,7 +15,12 @@ legacy ``/search`` (text, image or multimodal by its inputs, with
 ``/`` and ``/manage`` (serving/ui.py). The responses are the JAX app's
 (ids, 409 on a duplicate, 422 for string fields sent as file parts and for
 malformed batches, ``limit=0`` -> up to 1000, per-file statuses and counts,
-progress records).
+progress records). ``remove_bg`` cuts the background out with the state's
+segmenter (U²-Net, models/u2net/runtime.py) where one is configured: of
+the stored image on ``/api/upload`` and ``/api/upload-folder``, of the
+query image on ``/api/search/image``, ``/api/search/multimodal`` and each
+frame of ``/api/search/image-batch``; a query whose cutout fails is logged
+and searched as sent.
 
 At start a background thread warms the serving path (IMATCH_WARMUP,
 default on, as in JAX): the towers at B = 1 and a store query at each k
@@ -120,6 +125,20 @@ def _decode_all(contents: List[bytes]) -> list:
     return out
 
 
+def _maybe_remove_query_bg(state: AppState, image: Image.Image) -> Image.Image:
+    """The query image's cutout, RGB, where the state has a segmenter (the
+    legacy ``remove_bg`` form flag); the image itself without one or when
+    the cutout fails."""
+    if state.segmenter is None:
+        return image
+    try:
+        arr = state.segmenter.remove_background(np.asarray(image))
+        return Image.fromarray(arr[..., :3])
+    except Exception as e:
+        logger.exception("query background removal failed: %s", e)
+        return image
+
+
 def _parse_bool(v, default=False) -> bool:
     if v is None:
         return default
@@ -189,6 +208,7 @@ def create_app(
                 filename=file.filename,
                 description=description,
                 custom_metadata=custom_metadata,
+                remove_bg=_parse_bool(form.get("remove_bg")),
             )
         except Exception as e:
             logger.error("upload error: %s", e)
@@ -260,7 +280,10 @@ def create_app(
             return JSONResponse({"success": False, "error": "file field required"}, 422)
         filters = form.getlist("filters")
         limit = _parse_int(form.get("limit"), 10)
-        results = search_mod.search_by_image(state, _open_upload(file), limit=limit)
+        image = _open_upload(file)
+        if _parse_bool(form.get("remove_bg")):
+            image = _maybe_remove_query_bg(state, image)
+        results = search_mod.search_by_image(state, image, limit=limit)
         return {"results": apply_search_filters(results, filters)}
 
     def _text_results(query: str, filters: List[str], limit: int) -> dict:
@@ -303,8 +326,11 @@ def create_app(
         weight_image = _parse_float(form.get("weight_image"), 0.5)
         filters = form.getlist("filters")
         limit = _parse_int(form.get("limit"), 10)
+        image = _open_upload(file)
+        if _parse_bool(form.get("remove_bg")):
+            image = _maybe_remove_query_bg(state, image)
         results = search_mod.search_multimodal(
-            state, _open_upload(file), query, weight_image=weight_image, limit=limit
+            state, image, query, weight_image=weight_image, limit=limit
         )
         return {"results": apply_search_filters(results, filters)}
 
@@ -351,8 +377,8 @@ def create_app(
     @app.post("/api/search/image-batch")
     def search_image_batch(req):
         """Batched image search: multipart ``files`` (repeated), ``limit``,
-        ``filters`` -> ``{"results": [[...], ...]}``, one row per file in
-        order, shaped like /api/search/image's results."""
+        ``filters``, ``remove_bg`` -> ``{"results": [[...], ...]}``, one row
+        per file in order, shaped like /api/search/image's results."""
         form = req.form()
         files = [f for f in form.getlist("files") if isinstance(f, UploadFile)]
         if not files:
@@ -361,13 +387,17 @@ def create_app(
             return JSONResponse({"success": False, "error": "at most 256 files per batch"}, 422)
         filters = form.getlist("filters")
         limit = _parse_int(form.get("limit"), 10)
+        remove_bg = _parse_bool(form.get("remove_bg"))
         images = []
         for f, img in zip(files, _decode_all([f.content for f in files])):
             if isinstance(img, Exception):
                 return JSONResponse(
                     {"success": False, "error": f"Cannot open image {f.filename!r}: {img}"}, 422
                 )
-            images.append(Image.fromarray(img))
+            image = Image.fromarray(img)
+            if remove_bg:
+                image = _maybe_remove_query_bg(state, image)
+            images.append(image)
         rows = search_mod.search_by_image_batch(state, images, limit=limit)
         return {"results": [apply_search_filters(r, filters) for r in rows]}
 

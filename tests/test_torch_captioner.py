@@ -5,7 +5,10 @@ models/moondream/runtime.py) against the JAX package's, on the CPU.
   random.key(0))``, what ``MoondreamJax`` loads) gives ``MoondreamJax``'s
   encodings (rtol/atol 1e-5), captions, open answers and yes/no answers
   (equal), segmented or not (IMATCH_MD_SEG).
-- The int8 modes that are not ported raise.
+- The int8 modes' environment gating, as tests/test_moondream.py:529
+  holds JAX's: IMATCH_MD_ACT=int8 without IMATCH_MD_QUANT=int8, an unknown
+  IMATCH_MD_ACT and IMATCH_MD_PARAM_DTYPE=int8 raise ValueError; the int8
+  weights, the W8A8 prefill and the int8 cache build and answer.
 - ``get_captioner``'s chain (null / cloud / moondream / auto) and
   ``CloudCaptioner`` against a local fake of the hosted API, as
   tests/test_cloud_captioner.py runs JAX's.
@@ -19,6 +22,7 @@ from http.server import BaseHTTPRequestHandler, HTTPServer
 import jax
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from imatch_tpu.models.moondream.model import init_md_params
@@ -86,19 +90,36 @@ def test_moondream_batches_equal_jax(services):
 @pytest.mark.parametrize(
     "env,error",
     [
-        ({"IMATCH_MD_QUANT": "int8"}, NotImplementedError),
-        ({"IMATCH_MD_ACT": "int8", "IMATCH_MD_QUANT": "int8"}, NotImplementedError),
-        ({"IMATCH_MD_ACT": "int8"}, NotImplementedError),
-        ({"IMATCH_MD_CACHE": "int8"}, NotImplementedError),
+        ({"IMATCH_MD_QUANT": "int8"}, None),
+        ({"IMATCH_MD_ACT": "int8", "IMATCH_MD_QUANT": "int8"}, None),
+        ({"IMATCH_MD_ACT": "int8"}, ValueError),
+        ({"IMATCH_MD_CACHE": "int8"}, None),
         ({"IMATCH_MD_ACT": "fp4"}, ValueError),
         ({"IMATCH_MD_PARAM_DTYPE": "int8"}, ValueError),
     ],
 )
 def test_unported_and_unknown_modes_raise(monkeypatch, env, error):
+    """tests/test_moondream.py:529 on the port: the gating raises where
+    JAX's does; the modes that build carry their mode and answer."""
+    from imatch_tpu_torch.models.moondream.model import Int8Linear
+
+    for k in ("IMATCH_MD_QUANT", "IMATCH_MD_ACT", "IMATCH_MD_CACHE"):
+        monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(error, match="Queue 1 step 10" if error is NotImplementedError else None):
-        MoondreamTorch(config="tiny-md", device="cpu")
+    if error is not None:
+        with pytest.raises(error):
+            MoondreamTorch(config="tiny-md", device="cpu")
+        return
+    m = MoondreamTorch(config="tiny-md", device="cpu")
+    quant = env.get("IMATCH_MD_QUANT") == "int8"
+    assert isinstance(m.model.text.lm_head, Int8Linear) == quant
+    assert all(isinstance(layer.out, Int8Linear) == quant for layer in m.model.text.layers)
+    assert m.act_quant == (env.get("IMATCH_MD_ACT") == "int8")
+    assert m.cache_dtype == (torch.int8 if "IMATCH_MD_CACHE" in env else None)
+    enc = m.encode_image(np.full((24, 30, 3), 128, np.uint8))
+    assert m.query(enc, "Yes or No: is it gray?")["answer"] in ("Yes", "No")
+    assert isinstance(m.caption(enc, max_new=6)["caption"], str)
 
 
 def test_param_dtype_bf16_rounds_the_weights_as_jax(monkeypatch, services):

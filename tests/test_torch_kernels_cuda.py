@@ -434,6 +434,56 @@ def test_quantize_kernels_match_plain(cuda, dtype, shape):
     assert float(got3[1].view(-1)[-1]) == 1.0 and not got3[0].view(-1, d)[-1].any()
 
 
+@pytest.mark.parametrize(
+    "shape",
+    [(760, 2048), (761, 2048), (1523, 8192), (2, 761, 8192), (12160, 2048)],
+    ids=["b1-d2048", "b1-odd-rows", "b2-d8192", "b2-3d-d8192", "b16-d2048"],
+)
+def test_quantize_kernels_moondream_shapes(cuda, shape):
+    """The W8A8 Moondream prefill's rows (B x (1 + 729 + prompt)) at D 2048
+    (K4 on the residual stream, K3 on the attention output) and 8192 (K3
+    on gelu(fc1)), bf16, with a zero row."""
+    test_quantize_kernels_match_plain(cuda, torch.bfloat16, shape)
+
+
+def test_moondream_int8_modes_on_card_match_cpu(cuda):
+    """tiny-md in fp32, the same weights on the card and on the CPU: int8
+    weights (prefill logits within 1e-4), an int8 cache (the first decode
+    step within 1e-4) and the W8A8 prefill through K4 and K3 (one K4 and
+    two K3 a layer; within 2e-3, the K3/K4 codes being within one LSB of
+    the plain versions')."""
+    from imatch_tpu_torch.models.moondream.configs import TINY_MD
+    from imatch_tpu_torch.models.moondream.generate import prefill
+    from imatch_tpu_torch.models.moondream.model import (
+        decoder_forward,
+        embed_tokens,
+        init_random as md_init_random,
+        lm_logits,
+        quantize_int8,
+    )
+
+    resolve_device(cuda)
+    cpu = quantize_int8(md_init_random(TINY_MD, seed=0, device="cpu", dtype=torch.float32))
+    card = quantize_int8(md_init_random(TINY_MD, seed=0, device="cpu", dtype=torch.float32)).to(cuda)
+    g = torch.Generator().manual_seed(3)
+    feats = torch.randn((2, TINY_MD.vision.num_patches, TINY_MD.text.hidden_size), generator=g)
+    toks = torch.randint(0, 256, (2, 6), generator=g)
+    want, wc, pos = prefill(cpu, feats, toks, max_new=4, cache_dtype=torch.int8)
+    got, gc, _ = prefill(card, feats.to(cuda), toks.to(cuda), max_new=4, cache_dtype=torch.int8)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    nxt = torch.argmax(want, dim=-1)[:, None]
+    h_w, _ = decoder_forward(cpu, embed_tokens(cpu, nxt), wc, pos)
+    h_g, _ = decoder_forward(card, embed_tokens(card, nxt.to(cuda)), gc, pos)
+    torch.testing.assert_close(lm_logits(card, h_g).cpu(), lm_logits(cpu, h_w), rtol=0, atol=1e-4)
+    before = (quant_rows.launches, ln_quant_rows.launches)
+    got, _, _ = prefill(card, feats.to(cuda), toks.to(cuda), use_cache=False, act_quant=True)
+    torch.cuda.synchronize()
+    n = TINY_MD.text.num_layers
+    assert (quant_rows.launches, ln_quant_rows.launches) == (before[0] + 2 * n, before[1] + n)
+    want, _, _ = prefill(cpu, feats, toks, use_cache=False, act_quant=True)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-3)
+
+
 def test_quantize_kernels_raise_instead_of_falling_back(cuda):
     before = (quant_rows.launches, ln_quant_rows.launches)
     with pytest.raises(ValueError, match="multiple of 8"):

@@ -15,6 +15,20 @@ cache-free against cached, a prefill against one token at a time) at the
 bars tests/test_moondream.py holds JAX to. The framework-free copies
 (configs, the GPT-2 tokenizer, the converter) give the same fields, ids
 and trees as their originals.
+
+The int8 modes, packed and unpacked, against JAX's on the same trees:
+``quantize_int8`` codes and scales bit-identical; the int8 cache's codes
+within 1 LSB on under 1e-3 of them (its keys and values agree to fp32
+rounding); int8-weight prefill logits and the first decode step through
+an int8 cache within 1e-5 (``INT8_TOL``), greedy tokens equal; the W8A8
+prefill against JAX with its Pallas kernels (IMATCH_QUANT_KERNEL=pallas,
+interpret mode on the CPU, the kernels the port's plain K3/K4 versions
+follow) and against its default XLA composition within 2e-3
+(``W8A8_TOL``: where the two packages' fp32 activations differ by
+rounding, an activation code on a rounding boundary lands one LSB away and
+the next layers carry it; dh72 reads 6.1e-4, tiny-md 6e-8), yes/no
+answers equal; and tests/test_moondream.py:224, :359 and :489's own bars on the
+port.
 """
 
 import dataclasses
@@ -33,8 +47,13 @@ from imatch_tpu.models.moondream.generate import (
     vqa_yes_no as jax_vqa,
 )
 from imatch_tpu.models.moondream.model import (
+    decoder_forward as jax_decoder_forward,
+    embed_tokens as jax_embed_tokens,
     encode_image_features as jax_encode,
     init_md_params,
+    lm_logits as jax_lm_logits,
+    pack_text_layers as jax_pack,
+    quantize_int8 as jax_quantize_int8,
 )
 from imatch_tpu.ops.tokenizer_gpt2 import GPT2Tokenizer as JaxGPT2Tokenizer
 from imatch_tpu_torch.models.moondream import configs
@@ -49,11 +68,13 @@ from imatch_tpu_torch.models.moondream.generate import (
     vqa_yes_no,
 )
 from imatch_tpu_torch.models.moondream.model import (
+    Int8Linear,
     decoder_forward,
     embed_tokens,
     encode_image_features,
     init_cache,
     lm_logits,
+    quantize_int8,
 )
 from imatch_tpu_torch.ops.tokenizer_gpt2 import GPT2Tokenizer
 
@@ -416,3 +437,176 @@ def test_caption_batch_segmented_matches(tiny_tree, monkeypatch):
     mono = svc.caption_batch(encs, max_new=10)
     monkeypatch.setenv("IMATCH_MD_SEG", "4")
     assert svc.caption_batch(encs, max_new=10) == mono
+
+
+# -- the int8 modes ------------------------------------------------------------
+
+INT8_TOL = 1e-5
+W8A8_TOL = 2e-3
+
+
+@pytest.fixture(scope="module", params=["packed", "unpacked"])
+def int8_pair(pair, request):
+    """(jax cfg, port cfg, JAX's quantize_int8 tree, the port's full and
+    quantized models) on one layout."""
+    jcfg, pcfg, jparams, _, _ = pair
+    packed = request.param == "packed"
+    tree = jax.tree.map(np.array, jparams)
+    jtree = jax_quantize_int8(jax_pack(jparams) if packed else jparams)
+    full = md_params_from_numpy(tree, pcfg, packed=packed)
+    return jcfg, pcfg, jtree, full, quantize_int8(md_params_from_numpy(tree, pcfg, packed=packed))
+
+
+def _cos(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def _inputs(cfg, seed):
+    return torch.from_numpy(_feats(cfg, 2, seed)), torch.from_numpy(_tokens(cfg, 2, 6, seed))
+
+
+def test_quantize_int8_codes_equal_jax(int8_pair):
+    _, _, jtree, _, model = int8_pair
+    lt = jtree["text"]["layers"]
+    names = (
+        [("qkv_mlp", lt["qkv_mlp"]["w"])]
+        if "qkv_mlp" in lt
+        else [("q", lt["attn"]["wq"]), ("k", lt["attn"]["wk"]), ("v", lt["attn"]["wv"]), ("fc1", lt["mlp"]["w1"])]
+    ) + [("out", lt["attn"]["wo"]), ("fc2", lt["mlp"]["w2"])]
+    for i, layer in enumerate(model.text.layers):
+        for name, w in names:
+            lin = getattr(layer, name)
+            assert isinstance(lin, Int8Linear) and lin.q.dtype == torch.int8
+            np.testing.assert_array_equal(lin.q.numpy(), np.asarray(w["q"][i]).T)
+            np.testing.assert_array_equal(lin.s.numpy(), np.asarray(w["s"][i]))
+    head = jtree["text"]["lm_head"]["w"]
+    np.testing.assert_array_equal(model.text.lm_head.q.numpy(), np.asarray(head["q"]).T)
+    np.testing.assert_array_equal(model.text.lm_head.s.numpy(), np.asarray(head["s"]))
+
+
+def test_int8_weight_prefill_and_tokens_match_jax(int8_pair):
+    jcfg, pcfg, jtree, _, model = int8_pair
+    feats, toks = _inputs(pcfg, 41)
+    got, cache, pos = prefill(model, feats, toks, max_new=10)
+    want, jc, jp = jax_prefill(jtree, jcfg, jnp.asarray(feats.numpy()), jnp.asarray(toks.numpy(), jnp.int32), max_new=10)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=INT8_TOL)
+    out = greedy_generate(model, got, cache, pos, max_new=10)
+    np.testing.assert_array_equal(out.tokens.numpy(), np.asarray(jax_greedy(jtree, jcfg, want, jc, jp, max_new=10).tokens))
+
+
+def test_int8_cache_decode_matches_jax(int8_pair):
+    """The cache built from the prefill holds JAX's codes and scales; the
+    first decode step's logits agree; greedy tokens are equal."""
+    jcfg, pcfg, jtree, _, model = int8_pair
+    feats, toks = _inputs(pcfg, 43)
+    jfeats, jtoks = jnp.asarray(feats.numpy()), jnp.asarray(toks.numpy(), jnp.int32)
+    logits, cache, pos = prefill(model, feats, toks, max_new=8, cache_dtype=torch.int8)
+    jl, jc, jp = jax_prefill(jtree, jcfg, jfeats, jtoks, max_new=8, cache_dtype=jnp.int8)
+    assert cache.k.dtype == torch.int8 and cache.ks.dtype == torch.float32
+    for got, want in ((cache.k, jc.k), (cache.v, jc.v)):
+        # the keys and values themselves agree to fp32 rounding, so a code
+        # on a rounding boundary may land one LSB away
+        diff = np.abs(got.numpy().astype(int) - np.asarray(want).transpose(0, 1, 2, 4, 3).astype(int))
+        assert diff.max() <= 1 and (diff != 0).mean() < 1e-3
+    np.testing.assert_allclose(cache.ks.numpy(), np.asarray(jc.ks), rtol=1e-6, atol=0)
+    assert bool((cache.vs[:, :, :, pos:] == 1).all())  # padded slots at scale 1
+    nxt = torch.argmax(logits, dim=-1)[:, None]
+    h, _ = decoder_forward(model, embed_tokens(model, nxt), cache, pos)
+    jh, _ = jax_decoder_forward(jtree, jax_embed_tokens(jtree, jnp.asarray(nxt.numpy(), jnp.int32)), jc, jp, jcfg)
+    np.testing.assert_allclose(
+        lm_logits(model, h).numpy(), np.asarray(jax_lm_logits(jtree, jh, jcfg)), rtol=0, atol=INT8_TOL
+    )
+    logits, cache, pos = prefill(model, feats, toks, max_new=8, cache_dtype=torch.int8)
+    out = greedy_generate(model, logits, cache, pos, max_new=8)
+    np.testing.assert_array_equal(out.tokens.numpy(), np.asarray(jax_greedy(jtree, jcfg, jl, jc, jp, max_new=8).tokens))
+
+
+@pytest.mark.parametrize("kernel", ["pallas", "xla"])
+def test_w8a8_prefill_matches_jax(int8_pair, monkeypatch, kernel):
+    jcfg, pcfg, jtree, _, model = int8_pair
+    monkeypatch.setenv("IMATCH_QUANT_KERNEL", kernel)
+    feats, toks = _inputs(pcfg, 47)
+    jfeats, jtoks = jnp.asarray(feats.numpy()), jnp.asarray(toks.numpy(), jnp.int32)
+    got, _, _ = prefill(model, feats, toks, use_cache=False, act_quant=True)
+    want, _, _ = jax_prefill(jtree, jcfg, jfeats, jtoks, use_cache=False, act_quant=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=W8A8_TOL)
+    for yes, no in (((89, 121), (78, 110)), ((1,), (2,))):
+        ans = vqa_yes_no(model, feats, toks, yes, no, act_quant=True)
+        np.testing.assert_array_equal(ans.numpy(), np.asarray(jax_vqa(jtree, jcfg, jfeats, jtoks, yes, no, act_quant=True)))
+
+
+def test_w8a8_runs_k4_and_k3_per_layer(int8_pair, monkeypatch):
+    """One K4 (the residual stream's LayerNorm + quantize) and two K3 (the
+    attention output, gelu(fc1)) a layer, contiguous rows each; the LN
+    alone never runs when every projection is int8."""
+    from imatch_tpu_torch.models.moondream import model as md_model
+
+    _, pcfg, _, _, model = int8_pair
+    seen = {"K3": 0, "K4": 0, "ln": 0}
+
+    def k3(x):
+        assert x.is_contiguous()
+        seen["K3"] += 1
+        return orig_k3(x)
+
+    def k4(x, w, b, eps):
+        assert x.is_contiguous()
+        seen["K4"] += 1
+        return orig_k4(x, w, b, eps)
+
+    orig_k3, orig_k4 = md_model.quant_rows_int8, md_model.ln_quant_rows_int8
+    monkeypatch.setattr(md_model, "quant_rows_int8", k3)
+    monkeypatch.setattr(md_model, "ln_quant_rows_int8", k4)
+    hooks = [layer.ln.register_forward_pre_hook(lambda *_: seen.__setitem__("ln", seen["ln"] + 1)) for layer in model.text.layers]
+    feats, toks = _inputs(pcfg, 53)
+    prefill(model, feats, toks, use_cache=False, act_quant=True)
+    n = pcfg.text.num_layers
+    assert seen == {"K3": 2 * n, "K4": n, "ln": 0}
+    prefill(model, feats, toks, max_new=4)  # weight-only: no quantize, the LN per layer
+    for h in hooks:
+        h.remove()
+    assert seen == {"K3": 2 * n, "K4": n, "ln": n}
+
+
+def test_int8_weights_close_to_full(int8_pair):
+    """tests/test_moondream.py:224 on the port: prefill logits cosine >=
+    0.999 against the full-precision model."""
+    _, pcfg, _, full, model = int8_pair
+    feats, toks = _inputs(pcfg, 7)
+    a, _, _ = prefill(full, feats, toks)
+    b, _, _ = prefill(model, feats, toks)
+    assert _cos(a.numpy(), b.numpy()).min() >= 0.999
+
+
+def test_int8_cache_close_to_full_cache(int8_pair):
+    """tests/test_moondream.py:359 on the port: prefill logits identical
+    (the cache is not read yet), the first decode step's cosine >= 0.999,
+    and generation runs to the end."""
+    _, pcfg, _, full, _ = int8_pair
+    feats, toks = _inputs(pcfg, 31)
+    l_f, c_f, pos = prefill(full, feats, toks, max_new=8)
+    l_q, c_q, _ = prefill(full, feats, toks, max_new=8, cache_dtype=torch.int8)
+    assert c_q.k.dtype == torch.int8 and c_q.ks is not None
+    torch.testing.assert_close(l_f, l_q, rtol=1e-5, atol=1e-5)
+    emb = embed_tokens(full, torch.argmax(l_f, dim=-1)[:, None])
+    h_f, _ = decoder_forward(full, emb, c_f, pos)
+    h_q, _ = decoder_forward(full, emb, c_q, pos)
+    assert _cos(lm_logits(full, h_f)[:, 0].numpy(), lm_logits(full, h_q)[:, 0].numpy()).min() >= 0.999
+    assert greedy_generate(full, l_q, c_q, pos, max_new=8).tokens.shape == (2, 8)
+
+
+def test_w8a8_close_to_weight_only(int8_pair):
+    """tests/test_moondream.py:489 on the port: W8A8 prefill logits cosine
+    >= 0.99 against weight-only int8, the cache-free and cache-building
+    W8A8 prefills within 2e-4, and the same yes/no answers."""
+    _, pcfg, _, _, model = int8_pair
+    feats, toks = _inputs(pcfg, 11)
+    l_w, _, _ = prefill(model, feats, toks)
+    l_aq, _, _ = prefill(model, feats, toks, act_quant=True)
+    assert _cos(l_w.numpy(), l_aq.numpy()).min() >= 0.99
+    l_nc, _, _ = prefill(model, feats, toks, use_cache=False, act_quant=True)
+    torch.testing.assert_close(l_aq, l_nc, rtol=2e-4, atol=2e-4)
+    assert torch.equal(
+        vqa_yes_no(model, feats, toks, (1,), (2,)), vqa_yes_no(model, feats, toks, (1,), (2,), act_quant=True)
+    )
