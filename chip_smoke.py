@@ -119,6 +119,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    decode step and the yes/no chunk timed in each mode and in bf16; the
    W8A8 service's caption and yes/no chunk hold K4 to one launch and K3 to
    two a layer a prefill.
+8e. The tenth slice, the IVF tier and the sharded engines, on 2^20 rows
+   of clustered unit vectors at LongCLIP's width (4096 centres plus noise,
+   tombstones, duplicate rows); it runs after 8c, on slice 1's embedder.
+   (a) ``build_ivf`` timed whole and by stage (train, assign, pack; C by
+   the default rule); at n_probe = C the ids equal a full fp32 brute force
+   under phase 4's near-tie rule; at n_probe 8 recall@10 over 64 queries
+   is at least 0.95 and each row's self-match comes first; host and device
+   busy ms at Q = 1 and 16 for n_probe 8 and 64 beside the exact bf16
+   engine. (b) An IMATCH_INDEX_ENGINE=ivf store: 16 single adds patched
+   without a k-means run (the port's ``train_centroids`` counted), the
+   patched member lists equal to a repack's, 64 deletes, growth past a
+   lowered IMATCH_IVF_REBUILD_FRAC retraining exactly once, ``save`` with
+   its ``ivf-<gen>.npz`` sidecar and a ``load`` answering the same without
+   a k-means run. (c) Slice 1's app on that store over HTTP: uploads, an
+   image search whose first result is the upload, a text search; K2 held
+   to the tower calls that hooks count, K1 to none. (d) ``sharded`` at P =
+   1 and at 4 logical shards on the card, bf16 and fp32, at Q = 1 and 16:
+   ids and distances bit for bit the ``tilemax`` engine's, K1 launched P
+   times an engine call; patched adds, deletes and updates equal to a
+   fresh build; ``ivf-sharded`` at a full probe bit for bit ``sharded``,
+   across a sidecar restart at 4 shards. Where more than one card is
+   visible the sharded checks run over every card; otherwise a line says
+   that no multi-card run took place.
 9. A cut-depth vit-b32 tower on the card against the same weights on the
    CPU, and the W8A8 longclip tower against the fp32 tower on the card.
 10. The two experiment entry points, python -m imatch_tpu_torch.scripts.
@@ -131,9 +154,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    shape (K1 Q = 1 and 16, K1 int8, K3 and K4 at 16448 bf16 rows and at
    the Moondream prefill's 760 and 12160, K5 at each tile, K6). Events of back-to-back calls time the host where it
    launches more slowly than the card runs (K2 at B = 1). Late, because a
-   profiler session slows the host's later launches.
+   profiler session slows the host's later launches. A reading the traces
+   lost (a long process's late traces drop events) is null: not measured.
 12. POST /api/profile/start and /stop on a small app (vit-b32): 409s on
-   misuse, and a trace file that holds K1's and K2's kernels.
+   misuse, and a trace file that holds K1's and K2's kernels. It runs in a
+   process of its own (``chip_smoke.py --phase profile``), whose first
+   trace is whole, on the kernels phase 2 built.
 
 The device breakdowns attribute profiler events to K1-K6 by kernel
 symbol (``kernel_key`` in imatch_tpu_torch/scripts/kernel_ab.py):
@@ -184,16 +210,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return cuda_ms(fn, iters, warmup)
 
 
-def device_ms(fn, key=None, iters: int = 20) -> float:
+def device_ms(fn, key=None, iters: int = 20):
     """Device time of one call from a torch.profiler trace (kernel_ab.py's
     ``trace``): the mean launch of its one kernel named ``key``
     (kernel_ab.py's ``kernel_key``), or all of its kernels. CUDA events around
     back-to-back calls (``time_ms``) time the host instead where the host
-    takes longer to launch a call than the card to run it."""
+    takes longer to launch a call than the card to run it.
+
+    None, logged, where the traces lost the call: no launch of ``key`` in
+    any of them, or (``key`` None) no event after the marker. A long
+    process's late traces drop events (kernel_ab.py's ``trace``); a reading
+    from what is left of the window would understate the call."""
     from imatch_tpu_torch.scripts.kernel_ab import trace
 
     t = trace(fn, iters, key)
-    return t["busy_ms"] if key is None else t["mean_ms"][key]
+    if key is not None and key in t["mean_ms"]:
+        return t["mean_ms"][key]
+    if key is None and t["guarded"]:
+        return t["busy_ms"]
+    lost = {k: t[k] for k in ("events", "markers", "ops", "guarded")}
+    log(f"device time not measured: the traces lost {key or 'the call'}'s kernels " + json.dumps(lost))
+    return None
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype_name: str):
@@ -341,7 +378,7 @@ def phase_device(k2_rows, traced_rows) -> None:
     ``_trace`` call). It runs last: after a profiler session the host
     launches more slowly on the card's machine (CUDA events read K2 at
     B = 1 about twice as slow), so every CUDA-event time is taken before
-    it."""
+    it. A reading the traces lost is None (``device_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -349,7 +386,9 @@ def phase_device(k2_rows, traced_rows) -> None:
 
     def timed(row, fn, key):
         row["device_ms"] = device_ms(fn, key)
-        row["device_pct_of_bound"] = 100 * row["bound_ms"] / row["device_ms"]
+        row["device_pct_of_bound"] = (
+            None if row["device_ms"] is None else 100 * row["bound_ms"] / row["device_ms"]
+        )
 
     for row in k2_rows:
         q, k, v = _k2_inputs(tuple(row["shape"]), getattr(torch, row["dtype"]))
@@ -965,7 +1004,7 @@ def check_patched(store, queries, device, k=10) -> dict:
     import torch
 
     eng, patched = store._device_corpus
-    fresh = store._build_device(store._emb.copy(), store._alive.copy())[1]
+    fresh = store._build_device(store._emb.copy(), store._alive.copy())[0][1]
     k1_patched, plain = k1_calls(patched, queries)
     k1_fresh, _ = k1_calls(fresh, queries)
     got, want, ref = k1_patched(), k1_fresh(), plain()
@@ -3208,6 +3247,523 @@ def phase_md_int8(device="cuda", config=MD_CONFIG) -> dict:
     return {"launches": launches, "readings": readings, "times": times}
 
 
+# -- phase 8e ----------------------------------------------------------------
+
+IVF_ROWS = 1 << 20
+IVF_CENTRES = 4096
+IVF_NOISE = 0.5  # the norm of a row's noise against its unit centre
+IVF_QUERIES = 64
+IVF_ADDS = 16
+IVF_GROWTH = 128  # rows added past a lowered IMATCH_IVF_REBUILD_FRAC
+IVF_UPLOADS = 4
+SHARDS = 4  # logical shards on one card
+
+
+def clustered_corpus(n: int, d: int, centres: int, seed: int, device):
+    """Unit rows, each a random unit centre of ``centres`` plus Gaussian
+    noise of norm about IVF_NOISE; rows [n-64, n) duplicate rows [0, 64);
+    about 1% tombstones, none among rows 0-3 and their duplicates (queries
+    whose self-match ties)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    c = torch.randn((centres, d), generator=g, device=device)
+    c /= c.norm(dim=1, keepdim=True)
+    which = torch.randint(0, centres, (n,), generator=g, device=device)
+    x = c[which] + torch.randn((n, d), generator=g, device=device) * (IVF_NOISE / math.sqrt(d))
+    del c, which
+    x /= x.norm(dim=1, keepdim=True)
+    x[n - 64 :] = x[:64]
+    valid = torch.rand((n,), generator=g, device=device) >= 0.01
+    valid[:4] = valid[n - 64 : n - 60] = True
+    return x, valid
+
+
+@contextlib.contextmanager
+def counted_trains():
+    """Calls of the port's ``train_centroids`` (k-means runs) in a ``with``
+    block: the store, ``build_ivf`` and the sharded IVF all reach it through
+    the module."""
+    from imatch_tpu_torch.index import ivf
+
+    train = ivf.train_centroids
+    out = {"n": 0}
+
+    def counting(*args, **kw):
+        out["n"] += 1
+        return train(*args, **kw)
+
+    ivf.train_centroids = counting
+    try:
+        yield out
+    finally:
+        ivf.train_centroids = train
+
+
+def _ids_match(got_ids, got_s, queries, corpus, valid, brute_s, brute_i) -> dict:
+    """Phase 4's rule: ids equal to the brute force's, or, past 16 queries,
+    equal up to fp32 near-ties (valid, distinct rows whose full product is
+    within 1e-5 of the brute force's at each rank); scores within 1e-5."""
+    import torch
+
+    from imatch_tpu_torch.ops.kernels.topk import NEG_INF
+
+    full = torch.where(valid[None, :], queries @ corpus.T, NEG_INF).gather(1, got_ids)
+    distinct = bool((torch.sort(got_ids, dim=1).values.diff(dim=1) != 0).all())
+    exact = bool(torch.equal(got_ids, brute_i))
+    ties = bool(valid[got_ids].all()) and distinct and float((full - brute_s).abs().max()) <= 1e-5
+    score_err = float((got_s - brute_s).abs().max())
+    ok = (exact if queries.shape[0] <= 16 else ties) and score_err <= 1e-5
+    return {"ids_equal": exact, "ids_equal_up_to_ties": ties, "max_score_err": score_err, "ok": ok}
+
+
+def _readings(calls: dict, device) -> dict:
+    """Host ms of each call (ending in a sync), then, on the card, its
+    device busy ms and idle share from a trace (host readings first)."""
+    import torch
+
+    out = {name: {"host_ms": _host_ms(fn, device)} for name, fn in calls.items()}
+    if torch.device(device).type == "cuda":
+        for name, fn in calls.items():
+            busy = device_busy(fn, out[name]["host_ms"], iters=3)
+            out[name].update(
+                device_busy_ms=busy["device_busy_ms"],
+                idle_share=busy["idle_share"],
+                device_ops=busy["device_ops_per_call"],
+                K1_ms=busy["K1_ms"],
+            )
+    return out
+
+
+def ivf_library(x, valid, device) -> dict:
+    """(a) ``build_ivf`` timed whole and by stage, at the default C; a full
+    probe against the brute force; recall@10 and self-matches at n_probe 8;
+    the probe's readings at Q = 1 and 16 and n_probe 8 and 64 beside the
+    exact bf16 engine on the same rows."""
+    import torch
+
+    from imatch_tpu_torch.index import ivf
+    from imatch_tpu_torch.index.search import prepare_device_corpus, tilemax_topk
+
+    n = x.shape[0]
+    out = {}
+    t0 = time.perf_counter()
+    index = ivf.build_ivf(x, valid)
+    _sync(device)
+    out["build_ivf_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cents = ivf.train_centroids(x, valid)
+    _sync(device)
+    out["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    assign = ivf.assign_rows(x, cents)
+    out["assign_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ivf.pack_ivf_stats(x, valid, cents, assign)
+    _sync(device)
+    out["pack_s"] = time.perf_counter() - t0
+    c, m = index.members.shape
+    out.update(clusters=int(cents.shape[0]), clusters_nonempty=c, member_width=m)
+    g = torch.Generator().manual_seed(81)
+    rows = torch.nonzero(valid[64 : n - 64].cpu()).flatten() + 64
+    q_ids = torch.cat([torch.arange(4), rows[torch.randperm(rows.numel(), generator=g)[: IVF_QUERIES - 4]]])
+    q_ids = q_ids.to(x.device)
+    queries = x[q_ids]
+    brute_s, brute_i = brute_force_topk(queries, x, valid, 10)
+    s, i = ivf.ivf_topk(queries[:16], index, k=10, n_probe=c)
+    out["full_probe"] = _ids_match(i, s, queries[:16], x, valid, brute_s[:16], brute_i[:16])
+    s, i = ivf.ivf_topk(queries, index, k=10, n_probe=8)
+    hits = [len(set(a) & set(b)) for a, b in zip(i.tolist(), brute_i.tolist())]
+    out["recall_at_10_nprobe_8"] = sum(hits) / (10 * len(hits))
+    out["self_match_first"] = bool(torch.equal(i[:, 0], q_ids))
+    dc = prepare_device_corpus(x, valid, tile_n=512, device=device)
+    calls = {}
+    for nq in (1, 16):
+        for n_probe in (8, 64):
+            calls[f"ivf_q{nq}_nprobe{n_probe}"] = (
+                lambda nq=nq, n_probe=n_probe: ivf.ivf_topk(queries[:nq], index, k=10, n_probe=n_probe)
+            )
+        calls[f"exact_bf16_q{nq}"] = lambda nq=nq: tilemax_topk(queries[:nq], dc, k=10)
+    out["readings"] = _readings(calls, device)
+    del index, dc
+    ok = out["full_probe"]["ok"] and out["recall_at_10_nprobe_8"] >= 0.95 and out["self_match_first"]
+    return out, ok, queries
+
+
+def _members_equal(a, b) -> bool:
+    """Two member tables hold the same lists (a repack may be wider)."""
+    import torch
+
+    w = min(a.shape[1], b.shape[1])
+    return (
+        bool(torch.equal(a[:, :w], b[:, :w]))
+        and bool((a[:, w:] == -1).all())
+        and bool((b[:, w:] == -1).all())
+    )
+
+
+def ivf_store_check(x, valid, queries, device, root) -> tuple:
+    """(b) An IMATCH_INDEX_ENGINE=ivf store of the corpus: single adds
+    patched without a k-means run, the patched member lists equal to a
+    repack's, 64 deletes, growth past a lowered IMATCH_IVF_REBUILD_FRAC
+    retraining once, then ``save`` with its sidecar and a ``load`` that
+    answers the same without a k-means run. Returns the loaded store."""
+    import numpy as np
+
+    from imatch_tpu_torch.index import ivf
+    from imatch_tpu_torch.index.store import VectorStore
+
+    n = x.shape[0]
+    host, alive = x.cpu().numpy(), valid.cpu().numpy()
+    n_pre = n - IVF_ADDS - IVF_GROWTH
+    ids = [f"v{i}" for i in range(n)]
+    q = queries[:16]
+    out = {}
+    with counted_trains() as trains, environment(IMATCH_INDEX_ENGINE="ivf"):
+        store = VectorStore(device=device)
+        store.add(ids=ids[:n_pre], embeddings=host[:n_pre], metadatas=[{"id": i} for i in ids[:n_pre]])
+        store.delete([ids[i] for i in np.flatnonzero(~alive[:n_pre])])  # ~1% tombstones
+        store.query(q, n_results=10)  # the build the adds then patch
+        out["first_build"] = store.stats()["last_build"]
+        out["trains_after_build"] = trains["n"]
+        for i in range(n_pre, n_pre + IVF_ADDS):
+            store.add(ids=[ids[i]], embeddings=host[i : i + 1], metadatas=[{"id": ids[i]}])
+        st = store.stats()
+        out["adds_patched"] = st["patched_mutations"]
+        out["trains_after_adds"] = trains["n"]
+        _, state = store._device_corpus
+        h = store._ivf_host
+        repack, stats = ivf.pack_ivf_stats(state.corpus, store._alive, h["cents"], h["assign"])
+        out["members_equal_repack"] = _members_equal(state.members, repack.members) and bool(
+            np.array_equal(stats["counts"], h["counts"])
+        )
+        del repack
+        hit = store.query(host[n_pre : n_pre + IVF_ADDS], n_results=1)["ids"]
+        out["added_rows_found"] = [r[0] for r in hit] == ids[n_pre : n_pre + IVF_ADDS]
+        gone = [i for i in ids[100:164] if alive[int(i[1:])]]
+        store.delete(ids[100:164])
+        res = store.query(host[100:164][alive[100:164]], n_results=10)["ids"]
+        out["deleted_absent"] = not set(gone) & {i for r in res for i in r}
+        out["patched_after_deletes"] = store.stats()["patched_mutations"]
+        built = store._ivf_host["built_live"]
+        frac = 0.25 * IVF_GROWTH / built  # IVF_GROWTH more rows outgrow it
+        with environment(IMATCH_IVF_REBUILD_FRAC=repr(frac)):
+            grow = slice(n_pre + IVF_ADDS, n)
+            store.add(ids=ids[grow], embeddings=host[grow], metadatas=[{"id": i} for i in ids[grow]])
+            store.query(q, n_results=10)
+            store.query(q, n_results=10)
+        out["trains_after_growth"] = trains["n"]
+        out["ivf_after_growth"] = store.stats()["ivf"]
+        want = store.query(q, n_results=10)["ids"]
+        t0 = time.perf_counter()
+        store.save(root)
+        out["save_s"] = time.perf_counter() - t0
+        with open(os.path.join(root, "manifest.json")) as f:
+            out["sidecar"] = json.load(f).get("ivf")
+        del store, state
+        gc.collect()
+        t0 = time.perf_counter()
+        loaded = VectorStore.load(root, persist=False, device=device)
+        got = loaded.query(q, n_results=10)["ids"]
+        out["load_and_first_query_s"] = time.perf_counter() - t0
+        out["loaded_equal"] = got == want
+        out["loaded_ivf"] = loaded.stats()["ivf"]
+        out["trains_after_load"] = trains["n"]
+    ok = (
+        out["trains_after_build"] == out["trains_after_adds"] == 1
+        and out["adds_patched"] == IVF_ADDS
+        and out["members_equal_repack"]
+        and out["added_rows_found"]
+        and out["deleted_absent"]
+        and out["patched_after_deletes"] == IVF_ADDS + 1
+        and out["trains_after_growth"] == 2
+        and out["sidecar"] is not None
+        and out["loaded_equal"]
+        and out["trains_after_load"] == 2
+        and out["loaded_ivf"]["last_mode"] == "repair"
+    )
+    return loaded, out, ok
+
+
+def ivf_http_check(store, embedder, device, root) -> tuple:
+    """(c) Slice 1's app with IMATCH_INDEX_ENGINE=ivf on ``store``:
+    uploads, an image search at the default probe whose first result is
+    the uploaded image, a text search; K2's launches held to the tower
+    calls that hooks count, K1 to none (IVF runs no K1)."""
+    import shutil
+
+    import torch
+
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
+    from imatch_tpu_torch.ops.kernels.topk import tile_max
+    from imatch_tpu_torch.pipeline.state import AppState
+    from imatch_tpu_torch.serving.app import create_app
+
+    shutil.rmtree(root, ignore_errors=True)
+    with environment(IMATCH_INDEX_ENGINE="ivf", IMATCH_CAPTIONER="null"):
+        state = AppState(root=root, embedder=embedder, device=device, autoload=False)
+    state.store = store
+    patched0 = store.stats()["patched_mutations"]
+    pngs = [synthetic_png(8300 + i) for i in range(IVF_UPLOADS)]
+    times, ids = {}, []
+    counts_of = dict(clip_vision=embedder.model.vision, clip_text=embedder.model.text)
+    with ServerThread(create_app(state), port := _free_port()), call_counts(**counts_of) as towers:
+        http = HttpClient(port)
+        _sync(device)
+        flash_mha.launches = tile_max.launches = 0
+        for i, png in enumerate(pngs):
+            status, body, times[f"upload_{i}_ms"] = http.request("POST", "/api/upload", files=[("file", f"i{i}.png", png)])
+            assert status == 200 and body["success"], body
+            ids.append(body["metadata"]["id"])
+        status, body, times["image_search_ms"] = http.request(
+            "POST", "/api/search/image", [("limit", "10")], [("file", "q.png", pngs[1])]
+        )
+        assert status == 200, body
+        image_top = [r["id"] for r in body["results"]]
+        status, body, times["text_search_ms"] = http.request("POST", "/api/search/text", [("query", TEXT_QUERY), ("limit", "10")])
+        assert status == 200, body
+        text_n = len(body["results"])
+        _sync(device)
+        launches = {"K1": tile_max.launches, "K2": flash_mha.launches}
+        tower_calls = dict(towers)
+    nv, nt = embedder.cfg.vision.num_layers, embedder.cfg.text.num_layers
+    expected = {"K1": 0, "K2": nv * tower_calls["clip_vision"] + nt * tower_calls["clip_text"]}
+    if torch.device(device).type != "cuda":
+        expected["K2"] = 0
+    out = {
+        **times,
+        "image_top": image_top[:3],
+        "upload_first": image_top[:1] == [ids[1]],
+        "text_results": text_n,
+        "uploads_patched": store.stats()["patched_mutations"] - patched0,
+        "tower_calls": tower_calls,
+        "launches": launches,
+        "expected_launches": expected,
+    }
+    del state
+    gc.collect()
+    shutil.rmtree(root, ignore_errors=True)
+    ok = (
+        out["upload_first"]
+        and text_n == 10
+        and out["uploads_patched"] == IVF_UPLOADS
+        and launches == expected
+        and (launches["K2"] > 0 or torch.device(device).type != "cuda")
+    )
+    return out, ok
+
+
+def _bit_equal(a, b) -> bool:
+    return a["ids"] == b["ids"] and a["distances"] == b["distances"]
+
+
+def _shard_states_equal(got, want) -> bool:
+    import torch
+
+    return got.rows == want.rows and all(
+        torch.equal(getattr(g, f), getattr(w, f))
+        for g, w in zip(got.shards, want.shards)
+        for f in ("scoring", "exact", "valid")
+    )
+
+
+def sharded_check(x, valid, queries, device, root) -> tuple:
+    """(d) ``sharded`` at P = 1 (the card) and P = SHARDS logical shards on
+    it, bf16 and fp32, at Q = 1 and 16: bit for bit the ``tilemax``
+    engine's answers on the same rows, K1 launched P times an engine call;
+    patched adds, deletes and updates against a fresh build; ``ivf-sharded``
+    at a full probe bit for bit ``sharded``, across a sidecar restart at
+    P = SHARDS; the same over every card where more than one is visible.
+    Returns the readings, whether all held, and the counted K1 launches."""
+    import numpy as np
+    import torch
+
+    from imatch_tpu_torch.index.store import VectorStore
+    from imatch_tpu_torch.ops.kernels.topk import tile_max
+
+    host = x[valid].cpu().numpy()  # no tombstones: the sharded IVF sidecar needs none
+    n = host.shape[0]
+    ids = [f"s{i}" for i in range(n)]
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    out, ok, launches = {}, True, {"K1": 0, "K1_mma": 0}
+
+    def engine_check(store, ref_answers, tag, p):
+        """The store's Q = 1 and 16 answers against ``ref_answers`` and its
+        K1 launches an engine call (counted here for the kernels line)."""
+        nonlocal ok
+        store.query(queries[:1], n_results=10)  # the build
+        row = {}
+        for nq in (1, 16):
+            _sync(device)
+            k1, mma = tile_max.launches, tile_max.mma_launches
+            got = store.query(queries[:nq], n_results=10)
+            _sync(device)
+            calls = tile_max.launches - k1
+            launches["K1_mma"] += tile_max.mma_launches - mma
+            launches["K1"] += calls - (tile_max.mma_launches - mma)
+            row[f"q{nq}"] = {"bit_equal": _bit_equal(got, ref_answers[nq]), "k1_launches": calls}
+            ok &= row[f"q{nq}"]["bit_equal"] and calls == (p if on_card else 0)
+        out[tag] = row
+
+    readings = {}
+    for dtype in ("bf16", "fp32"):
+        ref = VectorStore(engine="tilemax", score_dtype=dtype, device=device)
+        ref.add(ids=ids, embeddings=host)
+        want = {nq: ref.query(queries[:nq], n_results=10) for nq in (1, 16)}
+        stores = {}
+        for p in (1, SHARDS):
+            st = VectorStore(engine="sharded", score_dtype=dtype, device=device, mesh=(dev,) * p)
+            st.add(ids=ids, embeddings=host)
+            engine_check(st, want, f"sharded_{dtype}_p{p}", p)
+            stores[p] = st
+        if dtype == "bf16":
+            for nq in (1, 16):
+                readings[f"tilemax_q{nq}"] = lambda nq=nq, s=ref: s.query(queries[:nq], n_results=10)
+                for p, st in stores.items():
+                    readings[f"sharded_p{p}_q{nq}"] = lambda nq=nq, s=st: s.query(queries[:nq], n_results=10)
+            out["readings"] = _readings(readings, device)
+            readings.clear()
+            sharded, exact = stores[SHARDS], ref
+            ivf_rows = ivf_sharded_check(sharded, ids, host, queries, device, root, out)
+            ok &= ivf_rows
+            # patched adds, deletes and updates on both stores
+            g = np.random.default_rng(83)
+            fresh_rows = g.standard_normal((IVF_ADDS + 64, host.shape[1])).astype(np.float32)
+            fresh_rows /= np.linalg.norm(fresh_rows, axis=1, keepdims=True)
+            for s in (sharded, exact):
+                s.add(ids=[f"n{i}" for i in range(IVF_ADDS)], embeddings=fresh_rows[:IVF_ADDS])
+                s.delete(ids[1000:1064])
+                s.update(ids[2000:2064], embeddings=fresh_rows[IVF_ADDS:])
+            st = sharded.stats()
+            fresh = sharded._build_device(sharded._emb.copy(), sharded._alive.copy())[0]
+            got = {nq: sharded.query(queries[:nq], n_results=10) for nq in (1, 16)}
+            fresh_ids = sharded._run_engine(torch.from_numpy(queries[:16].cpu().numpy()), fresh, 16)[1][:, :10]
+            out["patches"] = {  # the patched store against a fresh build and tilemax
+                "patched": st["patched_mutations"],
+                "rebuilt": st["rebuild_mutations"],
+                "state_equals_fresh_build": _shard_states_equal(sharded._device_corpus[1], fresh[1]),
+                "answers_equal_fresh_build": [[sharded._ids[i] for i in r] for r in fresh_ids.tolist()]
+                == got[16]["ids"],
+                "bit_equal_tilemax": all(_bit_equal(got[nq], exact.query(queries[:nq], n_results=10)) for nq in (1, 16)),
+            }
+            ok &= (
+                (st["patched_mutations"], st["rebuild_mutations"]) == (3, 0)
+                and out["patches"]["state_equals_fresh_build"]
+                and out["patches"]["answers_equal_fresh_build"]
+                and out["patches"]["bit_equal_tilemax"]
+            )
+            del fresh, sharded, exact
+            if torch.cuda.device_count() > 1:  # the same checks over every card
+                mesh = tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+                half = n // 2
+                st = VectorStore(engine="sharded", device=device, mesh=mesh)
+                st.add(ids=ids[:half], embeddings=host[:half])
+                ref2 = VectorStore(engine="tilemax", device=device)
+                ref2.add(ids=ids[:half], embeddings=host[:half])
+                want2 = {nq: ref2.query(queries[:nq], n_results=10) for nq in (1, 16)}
+                engine_check(st, want2, "sharded_cards", len(mesh))
+                cards = {}
+                ok &= ivf_sharded_check(st, ids[:half], host[:half], queries, device, root, cards)
+                out["ivf_sharded_cards"] = cards["ivf_sharded"]
+                del st, ref2
+            else:
+                out["multi_card"] = "fewer than two CUDA devices visible: no multi-card run took place"
+                log("sharded: fewer than two CUDA devices are visible; no multi-card run took place")
+        del ref, stores
+        gc.collect()
+    return out, ok, launches
+
+
+def ivf_sharded_check(sharded, ids, host, queries, device, root, out) -> bool:
+    """``ivf-sharded`` at SHARDS shards on the rows of ``sharded`` (no
+    tombstones): at a full probe bit for bit ``sharded``; saved with its
+    sidecar and loaded at the same mesh, the same answers at the default
+    and the full probe without a k-means run."""
+    import shutil
+
+    from imatch_tpu_torch.index.store import VectorStore
+
+    mesh = sharded._mesh
+    with counted_trains() as trains:
+        ann = VectorStore(engine="ivf-sharded", device=device, mesh=mesh)
+        ann.add(ids=ids, embeddings=host)
+        with environment(IMATCH_IVF_NPROBE="1000000"):
+            full = {nq: ann.query(queries[:nq], n_results=10) for nq in (1, 16)}
+        default = ann.query(queries[:16], n_results=10)
+        want = {nq: sharded.query(queries[:nq], n_results=10) for nq in (1, 16)}
+        row = {
+            "trains": trains["n"],
+            "full_probe_bit_equal_sharded": all(_bit_equal(full[nq], want[nq]) for nq in (1, 16)),
+            "clusters": ann.stats()["ivf"]["clusters"],
+        }
+        shutil.rmtree(root, ignore_errors=True)
+        t0 = time.perf_counter()
+        ann.save(root)
+        row["save_s"] = time.perf_counter() - t0
+        del ann
+        gc.collect()
+        with environment(IMATCH_INDEX_ENGINE="ivf-sharded"):
+            t0 = time.perf_counter()
+            loaded = VectorStore.load(root, persist=False, device=device, mesh=mesh)
+            again = loaded.query(queries[:16], n_results=10)
+            row["load_and_first_query_s"] = time.perf_counter() - t0
+            with environment(IMATCH_IVF_NPROBE="1000000"):
+                full_again = loaded.query(queries[:16], n_results=10)
+        row["restart_equal"] = _bit_equal(again, default) and _bit_equal(full_again, want[16])
+        row["restart_ivf"] = loaded.stats()["ivf"]
+        row["trains_after_restart"] = trains["n"]
+    del loaded
+    gc.collect()
+    shutil.rmtree(root, ignore_errors=True)
+    out["ivf_sharded"] = row
+    return (
+        row["trains"] == len(mesh)
+        and row["full_probe_bit_equal_sharded"]
+        and row["restart_equal"]
+        and row["trains_after_restart"] == len(mesh)
+        and row["restart_ivf"]["last_mode"] == "repair"
+    )
+
+
+def phase_ivf(embedder, device="cuda", rows=IVF_ROWS, centres=IVF_CENTRES) -> dict:
+    """Phase 8e: the IVF tier and the sharded engines on a ``rows``-row
+    clustered corpus at ``embedder``'s width: (a) the IVF library, (b) the
+    ivf store, (c) the app over HTTP on that store, (d) the sharded engines.
+    Returns the K1 and K2 launches of (c) and (d). (A small corpus and
+    config on the CPU rehearse the same control flow.)"""
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    dim = embedder.cfg.projection_dim
+    x, valid = clustered_corpus(rows, dim, centres, 80, device)
+    roots = {k: os.path.join("build", f"chip_smoke_ivf_{k}") for k in ("store", "app", "sharded")}
+    for r in roots.values():
+        shutil.rmtree(r, ignore_errors=True)
+    lib, lib_ok, queries = ivf_library(x, valid, device)
+    log("ivf library: " + json.dumps(lib))
+    store, st, st_ok = ivf_store_check(x, valid, queries, device, roots["store"])
+    log("ivf store: " + json.dumps(st))
+    shutil.rmtree(roots["store"], ignore_errors=True)
+    http, http_ok = ivf_http_check(store, embedder, device, roots["app"])
+    log("ivf http: " + json.dumps(http))
+    del store
+    gc.collect()
+    sh, sh_ok, k1 = sharded_check(x, valid, queries, device, roots["sharded"])
+    log("sharded: " + json.dumps(sh))
+    del x, valid, queries
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"phase 8e: {time.perf_counter() - t0:.1f} s")
+    failed = [name for name, good in (("library", lib_ok), ("store", st_ok), ("http", http_ok), ("sharded", sh_ok)) if not good]
+    if failed:
+        raise AssertionError(f"phase 8e failed: {failed}")
+    return {"launches": {"K1": k1["K1"], "K1_mma": k1["K1_mma"], "K2": http["launches"]["K2"]}}
+
+
 def phase_reference() -> None:
     """vit-b32 (depth cut to 2 layers a tower) on the card, bf16 and fp32,
     against the same weights in fp32 on the CPU: per-row cosine of the
@@ -3403,6 +3959,24 @@ def phase_profile(device="cuda") -> dict:
     return out
 
 
+def phase_profile_apart() -> None:
+    """Phase 12 in a process of its own: its check reads the app's profiler
+    trace, and this long process's late traces drop events (kernel_ab.py's
+    ``trace``). The child loads the kernels phase 2 built."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--phase", "profile"],
+        capture_output=True,
+        text=True,
+        timeout=600,
+    )
+    sys.stdout.write(proc.stdout)
+    sys.stderr.write(proc.stderr[-4000:])
+    log(f"phase 12 (own process): rc {proc.returncode}, {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 12 failed in its own process (rc {proc.returncode})")
+
+
 def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launches) -> dict:
     """One entry a kernel at the shapes its main path gives it: the image
     tower's attention for one upload, phase 1 of one search over the
@@ -3420,7 +3994,8 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
     towers'); K3 and K4 at the W8A8 Moondream prefill's 16-image shape,
     with the launches of phase 8d's W8A8 caption and yes/no chunk. Phase
     8c's cutout requests add their K1 and K2 launches to the CLIP
-    entries'."""
+    entries', phase 8e's sharded engine calls their K1 launches (P a call)
+    and its HTTP requests their K2 launches."""
 
     def pick(table, **want):
         return next(r for r in table if all(r[k] == v for k, v in want.items()))
@@ -3594,6 +4169,11 @@ def main() -> int:
     u2 = phase_u2net(embedder)["launches"]  # slice 9's cutouts and their searches
     launches["K1"] += u2["K1"]
     launches["K2"] += u2["K2"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ivf = phase_ivf(embedder)["launches"]  # slice 10: the sharded engines' K1, the towers' K2
+    launches["K1"] += ivf["K1"]
+    launches["K2"] += ivf["K2"]
     del embedder
     gc.collect()
     torch.cuda.empty_cache()
@@ -3607,10 +4187,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     script_launches, script_lines = phase_scripts()
     launches.update(script_launches)
-    launches["K1_mma"] += surface["K1_mma"] + u2["K1_mma"]
+    launches["K1_mma"] += surface["K1_mma"] + u2["K1_mma"] + ivf["K1_mma"]
     traced = [r for rows in (k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows) for r in rows if "_trace" in r]
     phase_device(k2_rows, traced)
-    phase_profile()
+    phase_profile_apart()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     for line in script_lines:
         print(line)
@@ -3631,5 +4211,17 @@ def main() -> int:
     return 0
 
 
+def main_profile() -> int:
+    """``--phase profile``: phase 12 alone, as ``phase_profile_apart`` runs it."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 2
+    os.environ["IMATCH_WARMUP"] = "0"
+    phase_profile()
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_profile() if sys.argv[1:] == ["--phase", "profile"] else main())

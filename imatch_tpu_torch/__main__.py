@@ -7,7 +7,15 @@ Env config (the same names as run.py):
                           unless absolute (default index_data)
   IMATCH_CLIP_CONFIG      vit-b32 | vit-l14 | longclip-l14-248 (default vit-b32)
   IMATCH_CLIP_CHECKPOINT  local HF checkpoint dir for real weights
-  IMATCH_INDEX_ENGINE     tilemax (default) | pallas | tilemax-host | auto
+  IMATCH_PROFILE          latency | throughput | capacity: fills in a group
+                          of the variables below (utils/profiles.py)
+  IMATCH_INDEX_ENGINE     auto (default, as run.py: sharded over every
+                          visible card, else tilemax) | tilemax | pallas |
+                          tilemax-host | sharded | ivf | ivf-sharded
+  IMATCH_IVF_NPROBE       clusters an ivf / ivf-sharded query probes
+                          (default 8)
+  IMATCH_IVF_REBUILD_FRAC live-set growth past which an IVF build retrains
+                          instead of repairing (default 0.3)
   IMATCH_SCORE_DTYPE      bf16 (default) | fp32 | int8
   IMATCH_STORE_CAPACITY   store slots to reserve up front (default 0: grow
                           by doubling from 1024)
@@ -58,6 +66,13 @@ def main() -> None:
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s"
     )
+    # the profile first: the serving stack reads the profiled environment
+    from imatch_tpu_torch.utils.profiles import apply_profile
+
+    apply_profile()
+    # every card for the index (the row-sharded exact engine), one card
+    # tilemax; an explicit IMATCH_INDEX_ENGINE wins
+    os.environ.setdefault("IMATCH_INDEX_ENGINE", "auto")
     from imatch_tpu_torch.device import resolve_device
     from imatch_tpu_torch.serving.app import create_app
     from imatch_tpu_torch.serving.server import serve

@@ -48,6 +48,27 @@ on the same device as the full build, so the codes and scales equal the
 build's bit for bit. ``tilemax-host`` brings them to the host first (JAX
 ``_rows_f32``), for its numpy quantization and host rows.
 
+- ``sharded`` (``ShardedCorpus``, parallel/dist_search.py): append,
+  delete, update. Each global slot maps to (shard, local slot), and each
+  shard's rows go through the ``DeviceCorpus`` patch above on the shard's
+  device.
+- ``ivf`` (``IVFIndex``): append and delete. New rows are assigned
+  against the EXISTING centroids (the FAISS add discipline) and written
+  into free member-table slots (``_insert_positions``: their cluster's
+  fill plus their rank in the batch), so a patched table equals a
+  repack's. Falls back when a row lands in a pruned cluster or a full
+  member list; the store falls back before calling when the live set
+  outgrew the retrain threshold. Updates fall back (the member lists
+  would go stale), as in JAX.
+- ``ivf-sharded`` (``ShardedIVF``, parallel/dist_ivf.py): append (each
+  shard's rows against its own centroids, into its table of local ids;
+  the cluster becomes ``nonempty``) and delete; updates fall back.
+
+An IVF append returns the host bookkeeping it changed beside the state:
+the rows' unpruned (for the sharded kind, shard-local) cluster ids for
+the store's ``assign``, and the new member-list fill (for the sharded
+kind, a dict shard -> fill).
+
 JAX pads each batch to a power of two (``_bucket``, ``_pad_idx``,
 ``_pad_rows``) for its jit cache. The port has no jit cache and patches
 the batch as it comes.
@@ -64,6 +85,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from imatch_tpu_torch.index import ivf as _ivf
 from imatch_tpu_torch.index.search import DeviceCorpus, HostRescoreCorpus, _int8_rows
 
 
@@ -138,19 +160,139 @@ def _host_tier_append(
     return state._replace(scoring=scoring, valid=valid, scale=scale, host_valid=host_valid)
 
 
+def _take(rows, sel: np.ndarray):
+    """The rows at positions ``sel`` of a numpy or tensor batch."""
+    if isinstance(rows, torch.Tensor):
+        return rows[torch.from_numpy(sel).to(rows.device)]
+    return np.asarray(rows)[sel]
+
+
+def _by_shard(slots: np.ndarray, shard_rows: int):
+    """(shard, positions in the batch, local slots) for each shard that
+    holds some of ``slots``."""
+    shard = slots // shard_rows
+    for s in np.unique(shard):
+        sel = np.nonzero(shard == s)[0]
+        yield int(s), sel, slots[sel] % shard_rows
+
+
+def _sharded_rows(state, slots: np.ndarray, rows, in_place: bool):
+    """A ``ShardedCorpus`` with rows written at global ``slots``: each
+    shard's through ``_dense_rows`` on its device."""
+    shards = list(state.shards)
+    for s, sel, local in _by_shard(slots, state.rows):
+        shards[s] = _dense_rows(shards[s], local, _take(rows, sel), in_place)
+    return state._replace(shards=tuple(shards))
+
+
+def _flag(mask: torch.Tensor, slots: np.ndarray, value: bool, in_place: bool) -> torch.Tensor:
+    """``mask[slots] = value`` for a bool mask, in place or in a clone."""
+    idx = torch.from_numpy(slots).to(mask.device)
+    return _write(mask, idx, torch.full(idx.shape, value, dtype=torch.bool, device=mask.device), in_place)
+
+
+def _insert_positions(pr: np.ndarray, base_counts: np.ndarray) -> np.ndarray:
+    """Member-table slot of each new row: its cluster's current fill plus
+    its rank among the batch's rows landing in the same cluster."""
+    order = np.argsort(pr, kind="stable")
+    sorted_c = pr[order]
+    if sorted_c.size:
+        starts = np.r_[0, np.nonzero(np.diff(sorted_c))[0] + 1]
+        lens = np.diff(np.r_[starts, sorted_c.size])
+        within = np.arange(sorted_c.size) - np.repeat(starts, lens)
+    else:
+        within = np.zeros((0,), np.int64)
+    pos = np.empty_like(within)
+    pos[order] = within
+    return base_counts + pos
+
+
+def _ivf_rows(ix, slots: np.ndarray, rows32: torch.Tensor, midx: np.ndarray, in_place: bool):
+    """An ``IVFIndex`` with ``slots`` written into its member table at the
+    flat positions ``midx``, and the fp32 rows (on the index's device)
+    written and marked valid at ``slots`` (the table's row ids)."""
+    dev = ix.corpus.device
+    idx = torch.from_numpy(slots).to(dev)
+    flat = ix.members.view(-1) if in_place else ix.members.clone().view(-1)
+    flat[torch.from_numpy(midx).to(dev)] = idx
+    return ix._replace(
+        members=flat.view(ix.members.shape),
+        corpus=_write(ix.corpus, idx, rows32.to(ix.corpus.dtype), in_place),
+        valid=_flag(ix.valid, slots, True, in_place),
+    )
+
+
+def _ivf_append(state, host, slots: np.ndarray, rows, in_place: bool):
+    """Single-device IVF append. Returns ``(new_state, (clusters,
+    counts))`` (unpruned cluster ids for ``assign``, the new pruned-space
+    fill) or None."""
+    if host is None or "counts" not in host or "pruned_map" not in host:
+        return None
+    rows32 = _rows_f32(rows, state.corpus.device)
+    cl = _ivf.assign_rows(rows32, host["cents"])  # unpruned ids
+    pr = host["pruned_map"][cl]
+    if np.any(pr < 0):
+        return None  # lands in a cluster pruned from the device table
+    counts = host["counts"]
+    m = state.members.shape[1]
+    pos = _insert_positions(pr, counts[pr])
+    if np.any(pos >= m):
+        return None  # a member list is full: repack
+    new_state = _ivf_rows(state, slots, rows32, pr.astype(np.int64) * m + pos, in_place)
+    new_counts = counts.copy()
+    np.add.at(new_counts, pr, 1)
+    return new_state, (cl, new_counts)
+
+
+def _ivf_sharded_append(state, host, slots: np.ndarray, rows, in_place: bool):
+    """Sharded IVF append: each shard's rows assigned against its own
+    centroids and written into its table. Returns ``(new_state, (shard-
+    local clusters, {shard: new fill}))`` or None."""
+    if host is None or "counts" not in host:
+        return None
+    cl = np.empty((slots.shape[0],), np.int32)
+    plan = []
+    for s, sel, local in _by_shard(slots, state.rows):
+        ix = state.shards[s]
+        rows_s = _rows_f32(_take(rows, sel), ix.corpus.device)
+        cl[sel] = _ivf.assign_rows(rows_s, host["cents"][s])
+        counts = host["counts"][s]
+        pos = _insert_positions(cl[sel], counts[cl[sel]])
+        if np.any(pos >= ix.members.shape[1]):
+            return None
+        plan.append((s, sel, local, rows_s, pos))
+    shards, masks, counts_upd = list(state.shards), list(state.nonempty), {}
+    for s, sel, local, rows_s, pos in plan:
+        c = cl[sel].astype(np.int64)
+        shards[s] = _ivf_rows(shards[s], local, rows_s, c * shards[s].members.shape[1] + pos, in_place)
+        masks[s] = _flag(masks[s], c, True, in_place)
+        nc = host["counts"][s].copy()
+        np.add.at(nc, c, 1)
+        counts_upd[s] = nc
+    return state._replace(shards=tuple(shards), nonempty=tuple(masks)), (cl, counts_upd)
+
+
 # -- public API (the store calls these under its lock) --------------------------
 
 
-def append_rows(dc, slots: np.ndarray, rows, *, in_place: bool) -> Optional[Tuple[str, tuple]]:
+def append_rows(dc, slots: np.ndarray, rows, *, in_place: bool, ivf_host=None):
     """Patch freshly appended rows into a prepared state. Returns
-    ``(tag, new_state)`` or None to ask for a rebuild. ``slots`` are the
-    store's slot indices (int64), ``rows`` the (b, D) fp32 embeddings,
-    numpy or a tensor (on the card: scattered device to device)."""
+    ``((tag, new_state), ivf_host_updates)`` (None but for the IVF kinds)
+    or None to ask for a rebuild. ``slots`` are the store's slot indices
+    (int64), ``rows`` the (b, D) fp32 embeddings, numpy or a tensor (on
+    the card: scattered device to device); ``ivf_host`` the store's IVF
+    host state."""
     tag, state = dc
     if tag in ("tilemax", "pallas"):
-        return tag, _dense_rows(state, slots, rows, in_place)
+        return (tag, _dense_rows(state, slots, rows, in_place)), None
+    if tag == "sharded":
+        return (tag, _sharded_rows(state, slots, rows, in_place)), None
     if tag == "tilemax-host":
-        return tag, _host_tier_append(state, slots, rows, in_place)
+        return (tag, _host_tier_append(state, slots, rows, in_place)), None
+    if tag in ("ivf", "ivf-sharded"):
+        append = _ivf_append if tag == "ivf" else _ivf_sharded_append
+        res = append(state, ivf_host, slots, rows, in_place)
+        return None if res is None else ((tag, res[0]), res[1])
     return None
 
 
@@ -158,21 +300,26 @@ def delete_rows(dc, slots: np.ndarray, *, in_place: bool) -> Optional[Tuple[str,
     """Clear the validity of tombstoned slots. Returns ``(tag, new_state)``
     or None."""
     tag, state = dc
-    idx = torch.from_numpy(slots).to(state.valid.device)
-    valid = _write(state.valid, idx, torch.zeros_like(idx, dtype=torch.bool), in_place)
-    if tag in ("tilemax", "pallas"):
-        return tag, state._replace(valid=valid)
+    if tag in ("tilemax", "pallas", "ivf"):
+        return tag, state._replace(valid=_flag(state.valid, slots, False, in_place))
     if tag == "tilemax-host":
         host_valid = state.host_valid.copy()
         host_valid[slots] = False
-        return tag, state._replace(valid=valid, host_valid=host_valid)
+        return tag, state._replace(valid=_flag(state.valid, slots, False, in_place), host_valid=host_valid)
+    if tag in ("sharded", "ivf-sharded"):
+        shards = list(state.shards)
+        for s, _, local in _by_shard(slots, state.rows):
+            shards[s] = shards[s]._replace(valid=_flag(shards[s].valid, local, False, in_place))
+        return tag, state._replace(shards=tuple(shards))
     return None
 
 
 def update_rows(dc, slots: np.ndarray, rows: np.ndarray, *, in_place: bool) -> Optional[Tuple[str, tuple]]:
-    """Scatter replaced embeddings (the device-only engines; the host tier
-    falls back). Returns ``(tag, new_state)`` or None."""
+    """Scatter replaced embeddings (the exact device engines; the host tier
+    and the IVF kinds fall back). Returns ``(tag, new_state)`` or None."""
     tag, state = dc
     if tag in ("tilemax", "pallas"):
         return tag, _dense_rows(state, slots, rows, in_place)
+    if tag == "sharded":
+        return tag, _sharded_rows(state, slots, rows, in_place)
     return None

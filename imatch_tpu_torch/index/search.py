@@ -31,6 +31,19 @@ int8 engine's, so both tiers select the same tiles.
 Ties break to the lower index, as ``lax.top_k`` does after the JAX code's
 index sort: both selections use a stable descending sort over candidates
 held in ascending index order (``torch.topk`` promises no order on ties).
+
+Every engine's final scores (this phase 2, each shard's in parallel/
+dist_search.py, the IVF probe's in index/ivf.py) come from ``final_topk``:
+one fp32 dot a row, an elementwise product summed over D, whose bits do
+not depend on how many rows or queries are scored beside it, on the card
+or the CPU. A batched matmul's do: cuBLAS and MKL choose kernels by
+shape (imatch_tpu_torch/scripts/score_forms.py: on an H100 a row's
+``bmm`` score changed in its last bit below 512 to 4096 rows a query,
+by the batch; on the CPU at a batch of one). So phase 2 ranks its
+candidates with ``bmm`` and scores the best k + ``FINAL_MARGIN`` again
+with ``final_topk``: engines that score the same row in batches of other
+shapes (``sharded`` against ``tilemax``, IVF at a full probe against
+either) return the same scores bit for bit.
 """
 
 from __future__ import annotations
@@ -50,6 +63,9 @@ from imatch_tpu_torch.ops.kernels.topk import (
 # Gathered fp32 candidate rows per phase-2 step; queries are processed in
 # chunks that stay under it (one query at a time at worst).
 _RESCORE_BYTES = 1 << 30
+# phase 2's survivors beyond k that ``final_topk`` scores again
+FINAL_MARGIN = 32
+_BIG = torch.iinfo(torch.int64).max
 
 
 class DeviceCorpus(NamedTuple):
@@ -148,15 +164,42 @@ def _top_tiles(tmax: torch.Tensor, kt: int) -> torch.Tensor:
     return torch.sort(tmax, dim=1, descending=True, stable=True).indices[:, :kt]
 
 
+def stable_top(scores: torch.Tensor, ids: torch.Tensor, kk: int):
+    """The kk best (score, id) pairs of each row of candidates: ordered by
+    id first (-1 last), then a stable descending sort of the scores (JAX's
+    argsort + ``lax.top_k``): ties to the lower id."""
+    order = torch.argsort(torch.where(ids < 0, _BIG, ids), dim=-1, stable=True)
+    scores, ids = scores.gather(-1, order), ids.gather(-1, order)
+    top, pos = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return top[..., :kk], ids.gather(-1, pos[..., :kk])
+
+
+def final_topk(cand: torch.Tensor, q32: torch.Tensor, rows: torch.Tensor, k: int):
+    """The final top k of (Q, r) candidate row ids (-1: none) of ``rows``
+    (N, D; bf16 is upcast): each candidate's fp32 score an elementwise
+    product summed over D (the same bits at any Q and r, see the module
+    docstring), ties to the lower id. Returns (Q, k) scores and ids,
+    ``NEG_INF`` and -1 past the candidates."""
+    s = (rows[cand.clamp(min=0)].float() * q32[:, None, :]).sum(-1)
+    s = torch.where(cand >= 0, s, NEG_INF)
+    kf = min(k, cand.shape[1])
+    ts, ti = stable_top(s, cand, kf)
+    ti = torch.where(ts <= NEG_INF / 2, -1, ti)
+    if kf < k:
+        ts = torch.nn.functional.pad(ts, (0, k - kf), value=NEG_INF)
+        ti = torch.nn.functional.pad(ti, (0, k - kf), value=-1)
+    return ts, ti
+
+
 def _rescore(q32, tmax, dc: DeviceCorpus, k: int):
     """Phase 2: candidate tiles from the tile maxima, exact fp32 rescore.
     The candidate rows of as many queries as fit in ``_RESCORE_BYTES`` are
-    gathered and scored by one ``torch.bmm`` (at k = 1000 a query gathers
-    about half a million rows, 1.6 GB at D = 768: one query a step). On
-    the card a query's ids and scores do not depend on the queries beside
-    it (bit for bit against the query alone and against a per-query
-    ``mv`` at Q = 16 and 256, imatch_tpu_torch/scripts/rescore_ab.py); on
-    the CPU the last bit of a score may."""
+    gathered and ranked by one ``torch.bmm`` (at k = 1000 a query gathers
+    about half a million rows, 1.6 GB at D = 768: one query a step); the
+    best k + ``FINAL_MARGIN`` are scored again by ``final_topk``, whose
+    scores do not depend on the batch (on the card the ``bmm`` ranking
+    alone was already batch-invariant at Q = 16 and 256,
+    imatch_tpu_torch/scripts/rescore_ab.py)."""
     nq, n_tiles = tmax.shape
     tile_n = dc.tile_n
     d = dc.exact.shape[1]
@@ -165,9 +208,9 @@ def _rescore(q32, tmax, dc: DeviceCorpus, k: int):
     rows_t = dc.exact.view(n_tiles, tile_n, d)
     valid_t = dc.valid.view(n_tiles, tile_n)
     col = torch.arange(tile_n, device=tmax.device)
-    kk = min(k, kt * tile_n)
+    keep = min(k + FINAL_MARGIN, kt * tile_n)
     step = max(1, _RESCORE_BYTES // (kt * tile_n * d * 4))
-    out_s, out_i = [], []
+    cands = []
     for q0 in range(0, nq, step):
         t = tiles[q0 : q0 + step]
         c = t.shape[0]
@@ -176,15 +219,12 @@ def _rescore(q32, tmax, dc: DeviceCorpus, k: int):
         s = torch.where(valid_t[t].reshape(c, -1), s, NEG_INF)
         gidx = (t[:, :, None] * tile_n + col).reshape(c, -1)
         s, pos = torch.sort(s, dim=1, descending=True, stable=True)
-        s = s[:, :kk]
-        idx = torch.where(s <= NEG_INF / 2, -1, gidx.gather(1, pos[:, :kk]))
-        out_s.append(s)
-        out_i.append(idx)
-    scores, idx = torch.cat(out_s), torch.cat(out_i)
-    if kk < k:
-        scores = torch.nn.functional.pad(scores, (0, k - kk), value=NEG_INF)
-        idx = torch.nn.functional.pad(idx, (0, k - kk), value=-1)
-    return scores, idx
+        cands.append(torch.where(s[:, :keep] <= NEG_INF / 2, -1, gidx.gather(1, pos[:, :keep])))
+    cand = torch.cat(cands)
+    # the survivors' final scores, as many queries a step as the budget holds
+    step = max(1, _RESCORE_BYTES // (keep * d * 4))
+    out = [final_topk(cand[q0 : q0 + step], q32[q0 : q0 + step], dc.exact, k) for q0 in range(0, nq, step)]
+    return torch.cat([s for s, _ in out]), torch.cat([i for _, i in out])
 
 
 def tilemax_topk(

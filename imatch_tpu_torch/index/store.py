@@ -24,11 +24,28 @@ cosine *distance* ``1 - cos`` like a chroma cosine collection
 - Engines: ``tilemax`` (tile_n 512, margin IMATCH_TILEMAX_MARGIN, default
   4, or 16 with int8 scoring), ``pallas`` (tile_n 2048, margin 4; int8
   scoring is coerced to bf16 there, as in JAX), ``tilemax-host`` (int8
-  codes on the device, fp32 rescore on the host; margin 16) and ``auto``
-  (``tilemax`` on one GPU, escalated per build to ``tilemax-host`` when
-  the device copies would outgrow the card, ``_engine_for``). Phase 1 of
-  each runs on K1, the int8 tiers on its int8 variant. Score dtypes bf16
-  (default), fp32 and int8.
+  codes on the device, fp32 rescore on the host; margin 16), ``sharded``
+  (the corpus row-sharded over the store's mesh, a ``tilemax`` engine a
+  shard, parallel/dist_search.py; int8 coerced to bf16), ``ivf`` and
+  ``ivf-sharded`` (approximate: index/ivf.py, one IVF a shard in
+  parallel/dist_ivf.py; IMATCH_IVF_NPROBE clusters probed, default 8)
+  and ``auto`` (``sharded`` on a mesh of more than one device, else
+  ``tilemax``, each escalated per build to ``tilemax-host`` when the
+  device copies would outgrow the card, ``_engine_for``). Phase 1 of the
+  exact engines runs on K1 (once a shard), the int8 tiers on its int8
+  variant. Score dtypes bf16 (default), fp32 and int8.
+- The mesh (parallel/mesh.py): ``mesh=`` (devices in shard order, a
+  device may repeat), by default every visible CUDA device for a store on
+  the card and the store's device alone on the CPU.
+- The IVF host state (``_ivf_host``: trained centroids, each slot's
+  cluster, the live count at the last k-means) outlives the device state:
+  a build after mutations REPAIRS the index (assigns only unassigned rows
+  against the existing centroids) until the live set has grown past
+  IMATCH_IVF_REBUILD_FRAC (default 0.3) since k-means, then retrains. It
+  follows capacity growth and compaction (the sharded kind is dropped:
+  its shard boundaries move), and ``save`` writes it to ``ivf-<gen>.npz``
+  (JAX's sidecar: the sharded kind only without tombstones), which
+  ``load`` validates and restores: a bad sidecar retrains, never blocks.
 - Each build is tagged with the engine that built it, and ``query``
   dispatches on the tag; ``stats()["last_build"]["engine"]`` reports it.
 - ``query`` runs the engine at the next power of two of k and keeps the
@@ -53,10 +70,6 @@ cosine *distance* ``1 - cos`` like a chroma cosine collection
   next drain point (a journaled op, a rebuild, ``save``, ``checkpoint``,
   ``get(include=embeddings)``, ``flush``; at most IMATCH_PENDING_MAX
   batches, default 64, wait).
-
-Not ported yet (ROADMAP.md, Queue 1): the IVF snapshot sidecar, and the
-sharded and IVF engines, which raise ``NotImplementedError`` naming their
-ROADMAP item.
 """
 
 from __future__ import annotations
@@ -68,12 +81,14 @@ import os
 import tempfile
 import threading
 import time
+import zipfile
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from imatch_tpu_torch.device import DeviceLike, resolve_device
+from imatch_tpu_torch.index import ivf as _ivf
 from imatch_tpu_torch.index import patch as _patch
 from imatch_tpu_torch.index.search import (
     HOST_MARGIN,
@@ -82,6 +97,9 @@ from imatch_tpu_torch.index.search import (
     prepare_host_rescore_corpus,
     tilemax_topk,
 )
+from imatch_tpu_torch.parallel.dist_ivf import prepare_sharded_ivf_incremental, sharded_ivf_topk
+from imatch_tpu_torch.parallel.dist_search import prepare_sharded_corpus, sharded_topk_prepared
+from imatch_tpu_torch.parallel.mesh import make_mesh
 from imatch_tpu_torch.runtime.scheduler import GATE
 from imatch_tpu_torch.utils.metrics import METRICS
 
@@ -96,13 +114,16 @@ _SCORE_DTYPES = {
     "float32": torch.float32,
     "int8": torch.int8,
 }
-_LATER = {
-    "sharded": "ROADMAP.md Queue 1 step 12 (multi-GPU and parallel)",
-    "ivf": "ROADMAP.md Queue 1 step 11 (IVF ANN tier)",
-    "ivf-sharded": "ROADMAP.md Queue 1 step 11 (IVF ANN tier) and step 12",
+# engine -> tile_n, as the JAX engines use them (the IVF kinds have no tiles)
+_ENGINES = {
+    "tilemax": 512,
+    "pallas": 2048,
+    "tilemax-host": 512,
+    "sharded": 512,
+    "ivf": None,
+    "ivf-sharded": None,
 }
-# engine -> tile_n, as the JAX engines use them
-_ENGINES = {"tilemax": 512, "pallas": 2048, "tilemax-host": 512}
+IVF_MARGIN = 32  # the IVF probe's phase-1 survivors beyond k (JAX ivf_topk's default)
 
 
 def _norm_row_lists(rows, n: int, what: str) -> list:
@@ -147,6 +168,12 @@ def _env_engine() -> str:
     return os.environ.get("IMATCH_INDEX_ENGINE", "tilemax").lower()
 
 
+def _rebuild_frac() -> float:
+    """IMATCH_IVF_REBUILD_FRAC: live-set growth since the last k-means past
+    which the IVF clustering is stale and retrains (default 0.3)."""
+    return float(os.environ.get("IMATCH_IVF_REBUILD_FRAC", "0.3"))
+
+
 def _score_dtype(name: str) -> torch.dtype:
     name = name.lower()
     if name not in _SCORE_DTYPES:
@@ -166,19 +193,22 @@ class VectorStore:
         capacity: Optional[int] = None,
         device: DeviceLike = None,
         coalesce: Optional[bool] = None,
+        mesh: Optional[Sequence] = None,
     ):
         self.device = resolve_device(device)
         self.dim = dim
+        # the sharded engines' devices, in shard order (parallel/mesh.py)
+        if mesh is not None:
+            self._mesh = make_mesh(mesh)
+        else:
+            self._mesh = make_mesh() if self.device.type == "cuda" else (self.device,)
         self.engine = (engine or _env_engine()).lower()
         self._auto = self.engine == "auto"
         if self._auto:
-            # one GPU: the single-device exact engine, escalated per build
-            # to the capacity tier when the corpus outgrows the card
-            self.engine = "tilemax"
-        if self.engine in _LATER:
-            raise NotImplementedError(
-                f"index engine {self.engine!r} is not ported yet: {_LATER[self.engine]}"
-            )
+            # the mesh-sharded exact engine on more than one device (the
+            # same answers, N/P rows a device), else the single-device one;
+            # either escalates per build to the capacity tier (_engine_for)
+            self.engine = "sharded" if len(self._mesh) > 1 else "tilemax"
         if self.engine not in _ENGINES:
             raise ValueError(f"unknown index engine {self.engine!r}")
         self.tile_n = _ENGINES[self.engine]
@@ -188,6 +218,11 @@ class VectorStore:
         if self.engine == "tilemax":
             default = "16" if self.score_dtype == torch.int8 else "4"
             self.margin = int(os.environ.get("IMATCH_TILEMAX_MARGIN", default))
+        elif self.engine == "sharded":
+            # int8 scoring runs as bf16 there, with bf16's margin
+            self.margin = int(os.environ.get("IMATCH_TILEMAX_MARGIN", "4"))
+        elif self.engine in ("ivf", "ivf-sharded"):
+            self.margin = IVF_MARGIN
         elif self.engine == "tilemax-host":
             # for stats(): the host tier's phase 1 takes HOST_MARGIN itself,
             # also when auto escalates a tilemax store to it
@@ -215,6 +250,11 @@ class VectorStore:
         self._inflight = 0
         self._patched = 0  # mutations absorbed by an O(batch) patch
         self._patch_rebuilds = 0  # mutations that fell back to invalidate
+        # IVF host state surviving device invalidations (lock-guarded;
+        # cents immutable once trained): kind, cents, assign (int32 a slot,
+        # -1 unassigned), built_live, last_mode, the append's counts (and
+        # pruned_map, or the sharded kind's dp and rows)
+        self._ivf_host: Optional[dict] = None
         self._last_build: Optional[dict] = None
         self._last_load: Optional[dict] = None  # stats(): load()'s seconds
         # device-resident adds whose host mirror rows and journal entries
@@ -260,6 +300,16 @@ class VectorStore:
             emb[: self._n] = self._emb[: self._n]
             alive[: self._n] = self._alive[: self._n]
         self._emb, self._alive = emb, alive
+        if self._ivf_host is not None:
+            if self._ivf_host.get("kind") == "ivf-sharded":
+                # a growth moves the shard boundaries: per-shard
+                # assignments mean nothing afterwards, so retrain
+                self._ivf_host = None
+            else:
+                grown = np.full((new_cap,), -1, np.int32)
+                old = self._ivf_host["assign"]
+                grown[: old.shape[0]] = old
+                self._ivf_host["assign"] = grown
         self._device_corpus = None
         self._gen += 1
 
@@ -277,6 +327,15 @@ class VectorStore:
             self._n = len(keep)
             self._dead = 0
             self._slot = {d: i for i, d in enumerate(self._ids)}
+            if self._ivf_host is not None:
+                if self._ivf_host.get("kind") == "ivf-sharded":
+                    # rows cross shard boundaries: shard-local clusters
+                    # do not transfer, so retrain
+                    self._ivf_host = None
+                else:
+                    remapped = np.full_like(self._ivf_host["assign"], -1)
+                    remapped[: len(keep)] = self._ivf_host["assign"][keep]
+                    self._ivf_host["assign"] = remapped
             self._device_corpus = None
             self._gen += 1
 
@@ -321,8 +380,9 @@ class VectorStore:
         into the prepared state with an O(batch) patch (index/patch.py)
         instead of dropping it, which would make the next query copy and
         upload the whole corpus again. Falls back to invalidation when the
-        engine or the patch declines. The state's tensors are written in
-        place only while no query holds it."""
+        engine or the patch declines (an IVF append past the staleness
+        budget, into a pruned cluster or a full member list). The state's
+        tensors are written in place only while no query holds it."""
         self._gen += 1
         dc = self._device_corpus
         if dc is None:
@@ -333,9 +393,34 @@ class VectorStore:
             return
         slots = np.asarray(slots, np.int64)
         in_place = self._inflight == 0
+        tag = dc[0]
+        h = None
+        if kind == "append" and tag in ("ivf", "ivf-sharded"):
+            h = self._ivf_host
+            if (
+                h is None
+                or h.get("kind") != tag
+                or "counts" not in h
+                or (self._n - self._dead) > h["built_live"] * (1.0 + _rebuild_frac())
+            ):
+                # a stale clustering: the next build retrains or repairs
+                # instead of packing rows into a layout about to be replaced
+                self._device_corpus = None
+                self._patch_rebuilds += 1
+                return
         try:
             if kind == "append":
-                res = _patch.append_rows(dc, slots, rows, in_place=in_place)
+                res = _patch.append_rows(dc, slots, rows, in_place=in_place, ivf_host=h)
+                if res is not None:
+                    res, host_upd = res
+                    if host_upd is not None:
+                        cl, counts = host_upd
+                        h["assign"][slots] = cl
+                        if isinstance(counts, dict):  # the sharded kind: a fill a shard
+                            for s, nc in counts.items():
+                                h["counts"][s] = nc
+                        else:
+                            h["counts"] = counts
             elif kind == "delete":
                 res = _patch.delete_rows(dc, slots, in_place=in_place)
             else:
@@ -564,6 +649,10 @@ class VectorStore:
                     self._meta[slot] = metadatas[i]
                 if embeddings is not None:
                     self._emb[slot] = embeddings[i]
+                    if self._ivf_host is not None:
+                        # its nearest centroid may have changed: -1
+                        # re-enters it through the repair pass
+                        self._ivf_host["assign"][slot] = -1
                     emb_slots.append(slot)
                 op = {"op": "update", "id": id_}
                 if metadatas is not None:
@@ -629,6 +718,15 @@ class VectorStore:
                 # entries wait for the next drain point
                 "pending_host_syncs": len(self._pending),
             }
+            h = self._ivf_host
+            if h is not None:
+                cents = h["cents"] if isinstance(h["cents"], list) else [h["cents"]]
+                out["ivf"] = {
+                    "kind": h["kind"],
+                    "clusters": sum(int(c.shape[0]) for c in cents),
+                    "built_live": int(h["built_live"]),
+                    "last_mode": h.get("last_mode"),
+                }
             if self._last_build is not None:
                 out["last_build"] = dict(self._last_build)
             if self._last_load is not None:
@@ -639,16 +737,18 @@ class VectorStore:
 
     def _engine_for(self, emb_copy: np.ndarray) -> str:
         """Effective engine for one build (JAX ``_engine_for``). With
-        IMATCH_INDEX_ENGINE=auto, when the device copies of the tilemax
-        engine (score dtype, int8 counted as 2 bytes as in JAX, plus the
-        fp32 rescore copy) would exceed IMATCH_AUTO_HBM_FRAC (default 0.5)
-        of the card's memory (IMATCH_DEVICE_BYTES_BUDGET, else the card's
-        total), the build escalates to tilemax-host, whose int8 codes are
-        the only device copy. The footprint counts the capacity buffer the
-        build uploads (``emb_copy``), as JAX's does. A non-auto engine is
-        never overridden."""
+        IMATCH_INDEX_ENGINE=auto, when the device copies of the tilemax or
+        sharded engine (score dtype, int8 counted as 2 bytes as in JAX,
+        plus the fp32 rescore copy; for sharded, divided over the mesh's
+        distinct devices) would exceed IMATCH_AUTO_HBM_FRAC (default 0.5)
+        of a card's memory (IMATCH_DEVICE_BYTES_BUDGET, else the card's
+        total), the build escalates to tilemax-host, whose int8 codes on
+        one card are the only device copy, where that is the smaller
+        footprint. The footprint counts the capacity buffer the build
+        uploads (``emb_copy``), as JAX's does. A non-auto engine is never
+        overridden."""
         eng = self.engine
-        if not self._auto or eng != "tilemax":
+        if not self._auto or eng not in ("tilemax", "sharded"):
             return eng
         budget = os.environ.get("IMATCH_DEVICE_BYTES_BUDGET")
         if budget is None and self.device.type == "cuda":
@@ -658,6 +758,8 @@ class VectorStore:
         elems = emb_copy.size
         score_bytes = 2 if self.score_dtype == torch.int8 else self.score_dtype.itemsize
         per_device = elems * (score_bytes + 4)
+        if eng == "sharded":
+            per_device //= len(set(self._mesh))
         host_tier = elems  # the int8 codes alone
         frac = float(os.environ.get("IMATCH_AUTO_HBM_FRAC", "0.5"))
         limit = frac * float(budget)
@@ -673,19 +775,104 @@ class VectorStore:
             return "tilemax-host"
         return eng
 
-    def _build_device(self, emb_copy: np.ndarray, alive_copy: np.ndarray):
-        """``(engine tag, state)`` over the whole capacity buffer, from
-        COPIES of the host buffers (on the CPU a tensor can alias numpy
-        memory that writers mutate in place). Runs outside the store lock:
-        at capacity scale the upload and quantize take from a second to
-        ten, and must not block writers."""
+    def _capture_ivf(self) -> Optional[dict]:
+        """A copy of the IVF host state for a build off the lock (caller
+        holds the lock): ``assign`` is copied, since the repair writes into
+        it while writers may mutate the original; ``cents`` are immutable
+        once trained."""
+        h = self._ivf_host
+        if h is None:
+            return None
+        snap = dict(h)
+        snap["assign"] = h["assign"].copy()
+        return snap
+
+    def _build_ivf(self, emb_copy: np.ndarray, alive_copy: np.ndarray, snap: Optional[dict]):
+        """The single-device IVF build with incremental repair (JAX
+        ``_build_ivf``). With host state from an earlier build and a live
+        set grown at most IMATCH_IVF_REBUILD_FRAC since its k-means, only
+        rows with no cluster yet (new adds, updated vectors, reused slots)
+        are assigned against the EXISTING centroids, and the member lists
+        repacked; past it the clustering is stale and k-means reruns.
+        Returns ``(state, host_state)``."""
+        cap = emb_copy.shape[0]
+        live = int(alive_copy.sum())
+        corpus = _ivf._as_corpus(emb_copy, self.device)  # one upload for every stage
+        if (
+            snap is not None
+            and snap.get("kind", "ivf") == "ivf"
+            and snap["cents"].shape[1] == emb_copy.shape[1]
+            and live <= snap["built_live"] * (1.0 + _rebuild_frac())
+        ):
+            assign = snap["assign"]
+            if assign.shape[0] < cap:
+                assign = np.concatenate([assign, np.full((cap - assign.shape[0],), -1, np.int32)])
+            else:
+                assign = assign[:cap]
+            assign[~alive_copy] = -1  # dead slots: a reused slot must repair
+            fresh = np.nonzero((assign == -1) & alive_copy)[0]
+            try:
+                if fresh.size:
+                    rows = corpus[torch.from_numpy(fresh).to(self.device)]
+                    assign[fresh] = _ivf.assign_rows(rows, snap["cents"])
+                state, pack_stats = _ivf.pack_ivf_stats(corpus, alive_copy, snap["cents"], assign)
+            except (IndexError, ValueError) as e:
+                # semantically corrupt host state (a bad sidecar past the
+                # load's checks) retrains, never poisons the serving path
+                logger.warning("IVF repair failed (%s); retraining from scratch", e)
+                return self._build_ivf(emb_copy, alive_copy, None)
+            host = {
+                "kind": "ivf",
+                "cents": snap["cents"],
+                "assign": assign,
+                "built_live": snap["built_live"],
+                "last_mode": "repair",
+                **pack_stats,
+            }
+            return state, host
+        cents = _ivf.train_centroids(corpus, alive_copy)
+        assign = _ivf.assign_rows(corpus, cents)
+        # the streamed argmax assigned EVERY slot, dead and padding rows
+        # (zeros) too: stamped unassigned, or rows added there later would
+        # pass as placed and be packed into the wrong member list
+        assign[~alive_copy] = -1
+        cents_np = cents.cpu().numpy()
+        state, pack_stats = _ivf.pack_ivf_stats(corpus, alive_copy, cents_np, assign)
+        return state, {
+            "kind": "ivf",
+            "cents": cents_np,
+            "assign": assign,
+            "built_live": live,
+            "last_mode": "train",
+            **pack_stats,
+        }
+
+    def _build_device(self, emb_copy: np.ndarray, alive_copy: np.ndarray, ivf_snap: Optional[dict] = None):
+        """``((engine tag, state), ivf_host)`` over the whole capacity
+        buffer, from COPIES of the host buffers (on the CPU a tensor can
+        alias numpy memory that writers mutate in place), and for the IVF
+        kinds ``ivf_snap`` (``_capture_ivf``). ``ivf_host`` is the IVF
+        kinds' updated host state (None for the other engines), installed
+        by the caller under the same generation check as the device state.
+        Runs outside the store lock: at capacity scale the upload and
+        quantize take from a second to ten, and must not block writers."""
         t0 = time.perf_counter()
         eng = self._engine_for(emb_copy)
+        ivf_host = None
         if eng == "tilemax-host":
             # host-side quantize: only the int8 codes cross to the card
             state = prepare_host_rescore_corpus(
                 emb_copy, alive_copy, tile_n=self.tile_n, device=self.device
             )
+        elif eng == "sharded":
+            state = prepare_sharded_corpus(
+                emb_copy, alive_copy, mesh=self._mesh, score_dtype=self.score_dtype, tile_n=512, margin=self.margin
+            )
+        elif eng == "ivf":
+            state, ivf_host = self._build_ivf(emb_copy, alive_copy, ivf_snap)
+        elif eng == "ivf-sharded":
+            snap = ivf_snap if ivf_snap and ivf_snap.get("kind") == "ivf-sharded" else None
+            state, ivf_host = prepare_sharded_ivf_incremental(emb_copy, alive_copy, mesh=self._mesh, snap=snap)
         else:
             dtype = self.score_dtype
             if eng == "pallas" and dtype == torch.int8:
@@ -698,15 +885,16 @@ class VectorStore:
                 margin=self.margin,
                 device=self.device,
             )
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)  # the build's time, not its enqueue
+        for dev in set(self._mesh) | {self.device}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)  # the build's time, not its enqueue
         # info-only write; racing builds yield slightly stale stats()
         self._last_build = {
             "engine": eng,
             "seconds": round(time.perf_counter() - t0, 3),
             "rows": int(emb_copy.shape[0]),
         }
-        return eng, state
+        return (eng, state), ivf_host
 
     def _device_state(self):
         """The prepared state, built under the lock if there is none
@@ -719,7 +907,10 @@ class VectorStore:
                 if self._emb is None:
                     return None
                 self._drain_pending()  # the build reads the host mirror
-                self._device_corpus = self._build_device(self._emb.copy(), self._alive.copy())
+                dc, ivf_host = self._build_device(self._emb.copy(), self._alive.copy(), self._capture_ivf())
+                self._device_corpus = dc
+                if ivf_host is not None:
+                    self._ivf_host = ivf_host
             return self._device_corpus
 
     def _run_engine(self, q, dc, k: int):
@@ -732,7 +923,14 @@ class VectorStore:
         q = q.float().to(self.device)
         if eng == "tilemax-host":
             return host_rescore_topk(q, state, k=k)
-        scores, idx = tilemax_topk(q, state, k=k)
+        if eng == "sharded":
+            scores, idx = sharded_topk_prepared(q, state, k=k)
+        elif eng in ("ivf", "ivf-sharded"):
+            n_probe = int(os.environ.get("IMATCH_IVF_NPROBE", "8"))
+            topk = _ivf.ivf_topk if eng == "ivf" else sharded_ivf_topk
+            scores, idx = topk(q, state, k=k, n_probe=n_probe, rescore_margin=self.margin)
+        else:
+            scores, idx = tilemax_topk(q, state, k=k)
         return scores.cpu().numpy(), idx.cpu().numpy()
 
     @staticmethod
@@ -765,17 +963,21 @@ class VectorStore:
                 self._drain_pending()  # the build reads the host mirror
                 emb = self._emb.copy()
                 alive = self._alive.copy()
+                ivf_snap = self._capture_ivf()
             else:
                 self._inflight += 1
         if dc is None:
-            dc = self._build_device(emb, alive)
+            dc, ivf_host = self._build_device(emb, alive, ivf_snap)
             with self._lock:
                 if self._gen == gen and self._device_corpus is None:
                     self._device_corpus = dc
+                    if ivf_host is not None:
+                        self._ivf_host = ivf_host
                 # a concurrent mutation invalidated or patched the store:
                 # dc is still consistent with the lists captured above, so
-                # THIS query serves it; the next one builds afresh. Either
-                # way it now holds a state a later patch could write into.
+                # THIS query serves it (its host state is discarded); the
+                # next one builds afresh. Either way it now holds a state a
+                # later patch could write into.
                 self._inflight += 1
         return live, dc, ids_l, meta_l, docs_l
 
@@ -913,9 +1115,15 @@ class VectorStore:
         Data files are written under new ``embeddings-<gen>.npy`` /
         ``records-<gen>.json`` names (the records one JSON array) and the
         manifest, replaced last, is the commit record that points at them:
-        a crash at any point leaves the previous generation intact. JAX's
-        IVF sidecar (``ivf-<gen>.npz``) is never written: the port has no
-        IVF state (ROADMAP.md Queue 1 step 11)."""
+        a crash at any point leaves the previous generation intact.
+
+        The IVF sidecar ``ivf-<gen>.npz`` (JAX's keys: ``kind``, ``cents``
+        or the sharded kind's ``cents_{i}``, ``dp`` and ``rows``,
+        ``assign`` in snapshot order, ``built_live``, the live count at the
+        last k-means) lets a restarted IVF store repair instead of
+        retraining. The sharded kind's assignments depend on slot
+        positions (shard = slot // rows), so it is written only when the
+        snapshot keeps them: with no tombstones."""
         path = path or self.persist_dir
         if path is None:
             raise ValueError("no path and no persist_dir")
@@ -926,6 +1134,13 @@ class VectorStore:
             gen = int(time.time() * 1e6)
             emb_name = f"embeddings-{gen}.npy"
             rec_name = f"records-{gen}.json"
+            h = self._ivf_host
+            ivf_name = (
+                f"ivf-{gen}.npz"
+                if h is not None
+                and (h.get("kind") == "ivf" or (h.get("kind") == "ivf-sharded" and self._dead == 0))
+                else None
+            )
             tmp = tempfile.mkdtemp(dir=path, prefix=".snapshot-")
             try:
                 with open(os.path.join(tmp, emb_name), "wb") as f:
@@ -945,8 +1160,15 @@ class VectorStore:
                     )
                     f.flush()
                     os.fsync(f.fileno())
+                if ivf_name is not None:
+                    with open(os.path.join(tmp, ivf_name), "wb") as f:
+                        np.savez(f, **self._ivf_payload(slots))
+                        f.flush()
+                        os.fsync(f.fileno())
                 os.replace(os.path.join(tmp, emb_name), os.path.join(path, emb_name))
                 os.replace(os.path.join(tmp, rec_name), os.path.join(path, rec_name))
+                if ivf_name is not None:
+                    os.replace(os.path.join(tmp, ivf_name), os.path.join(path, ivf_name))
                 mpath = os.path.join(tmp, "manifest.json")
                 manifest = {
                     "dim": self.dim,
@@ -955,6 +1177,8 @@ class VectorStore:
                     "records": rec_name,
                     "generation": gen,
                 }
+                if ivf_name is not None:
+                    manifest["ivf"] = ivf_name
                 with open(mpath, "w") as f:
                     json.dump(manifest, f)
                     f.flush()
@@ -968,27 +1192,76 @@ class VectorStore:
             if os.path.exists(journal):
                 os.unlink(journal)
             self._journal_len = 0
-            # collect superseded generations (and legacy names, and a
-            # JAX store's IVF sidecars, which this snapshot no longer pairs)
+            # collect superseded generations (and legacy names)
             for f in os.listdir(path):
-                if f.startswith(("embeddings", "records", "ivf")) and f not in (emb_name, rec_name):
+                if f.startswith(("embeddings", "records", "ivf")) and f not in (emb_name, rec_name, ivf_name):
                     try:
                         os.unlink(os.path.join(path, f))
                     except OSError:
                         pass
 
+    def _ivf_payload(self, slots) -> dict:
+        """The IVF sidecar's arrays for a snapshot of ``slots``."""
+        h = self._ivf_host
+        payload = {"assign": h["assign"][slots] if slots else np.zeros((0,), np.int32)}
+        if h.get("kind") == "ivf-sharded":
+            payload.update(kind=np.str_("ivf-sharded"), dp=np.int64(h["dp"]), rows=np.int64(h["rows"]))
+            for si, c in enumerate(h["cents"]):
+                payload[f"cents_{si}"] = c
+        else:
+            payload.update(kind=np.str_("ivf"), cents=h["cents"])
+        # the live count at the LAST K-MEANS, not the snapshot's: the
+        # snapshot's would ratchet the retrain baseline up across restarts
+        payload["built_live"] = np.int64(h["built_live"])
+        return payload
+
+    @staticmethod
+    def _read_ivf_sidecar(path: str, dim: int, n_records: int) -> Optional[dict]:
+        """The IVF host state of a sidecar (``assign`` in snapshot order),
+        or None where it is unreadable or does not match the snapshot (the
+        dim, the row count, assignments out of range): a bad sidecar is
+        logged and the next build retrains; it never blocks a restart. For
+        the sharded kind the build decides whether ``dp`` and ``rows`` fit
+        the current mesh and capacity (parallel/dist_ivf.py)."""
+        try:
+            with np.load(path) as z:
+                kind = str(z["kind"]) if "kind" in z else "ivf"
+                assign = np.asarray(z["assign"], np.int32)
+                built_live = int(z["built_live"]) if "built_live" in z else n_records
+                if kind == "ivf-sharded":
+                    cents = [np.asarray(z[f"cents_{si}"], np.float32) for si in range(int(z["dp"]))]
+                    extra = {"dp": int(z["dp"]), "rows": int(z["rows"])}
+                    dim_ok = all(c.ndim == 2 and c.shape[1] == dim for c in cents)
+                    max_c = max((c.shape[0] for c in cents), default=0)
+                else:
+                    cents = np.asarray(z["cents"], np.float32)
+                    extra = {}
+                    dim_ok = cents.ndim == 2 and cents.shape[1] == dim
+                    max_c = cents.shape[0]
+                range_ok = bool(np.all(assign >= -1) and np.all(assign < max_c)) if assign.size else True
+        except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+            logger.warning("ignoring unreadable IVF sidecar %s", path)
+            return None
+        if not (dim_ok and range_ok and assign.shape[0] == n_records):
+            logger.warning("ignoring IVF sidecar %s: it does not match the snapshot", path)
+            return None
+        return {"kind": kind, "cents": cents, "assign": assign, "built_live": built_live, **extra}
+
     @classmethod
-    def load(cls, path: str, persist: bool = True, device: DeviceLike = None) -> "VectorStore":
-        """Rehydrate: snapshot first, then replay the journal. With
-        ``persist`` the returned store keeps journaling into ``path``.
-        Engine and score dtype come from the environment, as in JAX; the
-        store lives on ``device`` (the card unless the CPU is asked for).
-        A manifest's ``ivf`` sidecar is ignored: the next build is a full
-        one, as JAX's is without the sidecar. ``stats()["last_load"]``
-        records the seconds of the snapshot read and of the replay."""
+    def load(
+        cls, path: str, persist: bool = True, device: DeviceLike = None, mesh: Optional[Sequence] = None
+    ) -> "VectorStore":
+        """Rehydrate: snapshot first, then the IVF sidecar (before the
+        replay, so replayed mutations are tracked as unassigned rows), then
+        the journal. With ``persist`` the returned store keeps journaling
+        into ``path``. Engine and score dtype come from the environment,
+        as in JAX; the store lives on ``device`` (the card unless the CPU
+        is asked for), its sharded engines on ``mesh``.
+        ``stats()["last_load"]`` records the seconds of the snapshot read
+        and of the replay."""
         t0 = time.perf_counter()
         manifest_path = os.path.join(path, "manifest.json")
-        store = cls(device=device)
+        store = cls(device=device, mesh=mesh)
         if os.path.exists(manifest_path):
             with open(manifest_path) as f:
                 manifest = json.load(f)
@@ -1015,6 +1288,13 @@ class VectorStore:
                     metadatas=[r["metadata"] for r in records],
                     documents=[r["document"] for r in records],
                 )
+            ivf_file = manifest.get("ivf")
+            if ivf_file and store._emb is not None:
+                h = cls._read_ivf_sidecar(os.path.join(path, ivf_file), store.dim, len(records))
+                if h is not None:
+                    full = np.full((store._emb.shape[0],), -1, np.int32)
+                    full[: h["assign"].shape[0]] = h["assign"]
+                    store._ivf_host = {**h, "assign": full}
         t1 = time.perf_counter()
         journal = os.path.join(path, "journal.jsonl")
         replayed = 0

@@ -125,7 +125,9 @@ def trace(fn, iters: int = 5, key=None) -> dict:
     spin, the marker: only what the trace holds after the marker is
     summed. A trace without the marker, or with no event after it (no
     launch of the kernel ``key`` where one is named), is taken again, up
-    to three times, and the last one is kept with ``guarded`` false."""
+    to three times, and the last one is kept with ``guarded`` false;
+    ``events`` and ``markers`` count its device events and spin markers
+    before the cut."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -144,6 +146,7 @@ def trace(fn, iters: int = 5, key=None) -> dict:
             key=lambda e: e.time_range.start,
         )
         spins = [i for i, e in enumerate(device) if "spin_kernel" in e.name]
+        n_events = len(device)
         device = device[spins[-1] + 1 :] if spins else device
         guarded = bool(spins) and any(key is None or kernel_key(e.name) == key for e in device)
         if guarded:
@@ -164,6 +167,8 @@ def trace(fn, iters: int = 5, key=None) -> dict:
         "mean_ms": {k: ms / launches[k] for k, ms in by_key.items()},
         "by_name": by_name,
         "guarded": guarded,
+        "events": n_events,
+        "markers": len(spins),
     }
 
 
@@ -232,7 +237,8 @@ def main(repeats: int = 5, iters: int = 20) -> dict:
     out["b64_w8a8_device_busy_ms"] = t["busy_ms"]
     out["b64_w8a8_k3_ms"], out["b64_w8a8_k4_ms"] = t["by_key"].get("K3", 0.0), t["by_key"].get("K4", 0.0)
     for name, (key, _) in SHAPES.items():
-        out[f"{name}_device_ms"] = trace(calls[name], iters, key)["mean_ms"][key]
+        # None: the trace held no launch of the kernel (not measured)
+        out[f"{name}_device_ms"] = trace(calls[name], iters, key)["mean_ms"].get(key)
     print(json.dumps(out), flush=True)
     return out
 

@@ -29,9 +29,11 @@ import time
 import torch
 
 from imatch_tpu_torch.index.search import (
+    FINAL_MARGIN,
     DeviceCorpus,
     NEG_INF,
     _rescore,
+    final_topk,
     _top_tiles,
     prepare_device_corpus,
     tilemax_topk,
@@ -48,7 +50,7 @@ TILE_N = 512
 def rescore_per_query(q32, tmax, dc: DeviceCorpus, k: int):
     """Phase 2 one query at a time: the batched form's steps (candidate
     tiles in index order, a stable sort, -1 / NEG_INF past the valid
-    rows) with one ``torch.mv`` a query."""
+    rows, the survivors' ``final_topk``) with one ``torch.mv`` a query."""
     nq, n_tiles = tmax.shape
     d = dc.exact.shape[1]
     kt = min(k + dc.margin, n_tiles)
@@ -56,19 +58,19 @@ def rescore_per_query(q32, tmax, dc: DeviceCorpus, k: int):
     rows_t = dc.exact.view(n_tiles, dc.tile_n, d)
     valid_t = dc.valid.view(n_tiles, dc.tile_n)
     col = torch.arange(dc.tile_n, device=tmax.device)
-    kk = min(k, kt * dc.tile_n)
-    scores = torch.full((nq, k), NEG_INF, dtype=torch.float32, device=tmax.device)
-    idx = torch.full((nq, k), -1, dtype=torch.int64, device=tmax.device)
+    keep = min(k + FINAL_MARGIN, kt * dc.tile_n)
+    out_s, out_i = [], []
     for qi in range(nq):
         t = tiles[qi]
         s = torch.mv(rows_t[t].reshape(kt * dc.tile_n, d), q32[qi])
         s = torch.where(valid_t[t].reshape(-1), s, NEG_INF)
         s, pos = torch.sort(s, descending=True, stable=True)
-        s = s[:kk]
         gidx = (t[:, None] * dc.tile_n + col).reshape(-1)
-        scores[qi, :kk] = s
-        idx[qi, :kk] = torch.where(s <= NEG_INF / 2, -1, gidx[pos[:kk]])
-    return scores, idx
+        cand = torch.where(s[:keep] <= NEG_INF / 2, -1, gidx[pos[:keep]])
+        scores, idx = final_topk(cand[None], q32[qi : qi + 1], dc.exact, k)
+        out_s.append(scores)
+        out_i.append(idx)
+    return torch.cat(out_s), torch.cat(out_i)
 
 
 def host_ms(fn, iters: int) -> float:

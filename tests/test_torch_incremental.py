@@ -109,7 +109,7 @@ def test_patched_matches_fresh_rebuild(engine, dtype, monkeypatch):
     _assert_same(got["jax"][0], got["torch"][0])
     s = got["torch"][1]
     if engine != "tilemax-host":  # its update rebuilt: nothing left to compare
-        _assert_states_equal(s._device_corpus[1], s._build_device(s._emb.copy(), s._alive.copy())[1])
+        _assert_states_equal(s._device_corpus[1], s._build_device(s._emb.copy(), s._alive.copy())[0][1])
 
 
 @pytest.mark.parametrize("engine,dtype", EXACT_ENGINES)
@@ -127,7 +127,7 @@ def test_patched_state_equals_a_fresh_build(engine, dtype, monkeypatch):
     if engine != "tilemax-host":
         s.update(_ids("b", 3), embeddings=_rows(3, 2))
     assert s.stats()["rebuild_mutations"] == 0
-    _assert_states_equal(s._device_corpus[1], s._build_device(s._emb.copy(), s._alive.copy())[1])
+    _assert_states_equal(s._device_corpus[1], s._build_device(s._emb.copy(), s._alive.copy())[0][1])
 
 
 @pytest.mark.parametrize("seed", [0, 1])

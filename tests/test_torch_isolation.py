@@ -80,6 +80,12 @@ def test_every_module_imports_without_jax_or_imatch_tpu():
         "utils.metrics",
         "utils.profiler",
         "serving.ui",
+        "index.ivf",
+        "parallel.mesh",
+        "parallel.dist_search",
+        "parallel.dist_ivf",
+        "utils.profiles",
+        "scripts.score_forms",
     ):
         assert f"imatch_tpu_torch.{name}" in names, name
 

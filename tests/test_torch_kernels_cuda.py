@@ -582,7 +582,7 @@ def test_patched_state_equals_fresh_build_on_card(cuda, engine, dtype, in_place)
     st = s.stats()
     assert st["rebuild_mutations"] == 0 and st["patched_mutations"] == (2 if engine == "tilemax-host" else 3)
     patched = s._device_corpus[1]
-    _states_equal(patched, s._build_device(s._emb.copy(), s._alive.copy())[1])
+    _states_equal(patched, s._build_device(s._emb.copy(), s._alive.copy())[0][1])
     if held is not None:
         for k, v in held[1]._asdict().items():
             if isinstance(v, torch.Tensor):
@@ -714,7 +714,7 @@ def test_device_add_patch_equals_fresh_build_on_card(cuda, engine, dtype):
     s.flush()
     assert s.stats()["pending_host_syncs"] == 0
     np.testing.assert_array_equal(s._emb[3000:3064], rows.cpu().numpy())
-    _states_equal(s._device_corpus[1], s._build_device(s._emb.copy(), s._alive.copy())[1])
+    _states_equal(s._device_corpus[1], s._build_device(s._emb.copy(), s._alive.copy())[0][1])
     q = _unit_rows(3, 4)
     fresh = VectorStore(dim=768, engine=engine, score_dtype=dtype, device=cuda)
     g = s.get(include=["embeddings"])
@@ -738,3 +738,133 @@ def test_batched_store_query_equals_single_on_card(cuda):
         one = s.query(q[i : i + 1], n_results=10, include=["distances"])
         assert got["ids"][i] == one["ids"][0]
         np.testing.assert_array_equal(got["distances"][i], one["distances"][0])
+
+
+def _clustered_rows(n, seed, centres=64, d=768):
+    """Unit rows around ``centres`` unit centres (noise of norm about 0.5):
+    nearest centroids keep a margin, so the card's and the CPU's fp32
+    products pick the same ones."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    c = _unit_rows(centres, seed + 1, d)
+    x = c[rng.integers(0, centres, n)] + rng.standard_normal((n, d)).astype(np.float32) * (0.5 / d**0.5)
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("p", [1, 4])
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_sharded_store_equals_tilemax_on_card(cuda, p, dtype):
+    """The sharded engine at P shards on the card (P = 4: logical shards
+    on one card) answers as tilemax does bit for bit, with tombstones and
+    duplicate rows, launching K1 once a shard an engine call; adds,
+    deletes and updates patch it into a fresh build's state, tensor for
+    tensor."""
+    import numpy as np
+
+    from imatch_tpu_torch.index.store import VectorStore
+
+    rows = _unit_rows(6000, 0)
+    rows[5990:] = rows[:10]
+    ids = [f"r{i}" for i in range(6000)]
+    ref = VectorStore(dim=768, engine="tilemax", score_dtype=dtype, device=cuda)
+    st = VectorStore(dim=768, engine="sharded", score_dtype=dtype, device=cuda, mesh=[cuda] * p)
+    q = np.concatenate([rows[:3], _unit_rows(13, 5)])
+    for s in (ref, st):
+        s.add(ids, rows)
+        s.delete(ids[100:130])
+        s.query(q[:1], n_results=1)  # the builds
+    for nq in (1, 16):
+        before = tile_max.launches
+        got = st.query(q[:nq], n_results=10)
+        torch.cuda.synchronize()
+        assert tile_max.launches - before == p
+        assert got == ref.query(q[:nq], n_results=10)
+    for s in (ref, st):
+        s.add([f"n{i}" for i in range(16)], _unit_rows(16, 6))
+        s.delete(ids[200:264])
+        s.update(ids[300:364], embeddings=_unit_rows(64, 7))
+    stats = st.stats()
+    assert (stats["patched_mutations"], stats["rebuild_mutations"]) == (3, 0)
+    fresh = st._build_device(st._emb.copy(), st._alive.copy())[0][1]
+    for got_shard, want_shard in zip(st._device_corpus[1].shards, fresh.shards):
+        _states_equal(got_shard, want_shard)
+    assert st.query(q, n_results=10) == ref.query(q, n_results=10)
+
+
+@pytest.mark.parametrize("engines", [("ivf", "tilemax", 1), ("ivf-sharded", "sharded", 4)])
+def test_ivf_full_probe_equals_exact_on_card(cuda, engines, monkeypatch):
+    """At a full probe the IVF kinds answer as their exact engines, bit
+    for bit, at Q = 1 and 16."""
+    import numpy as np
+
+    from imatch_tpu_torch.index.store import VectorStore
+
+    ann_engine, exact_engine, p = engines
+    rows = _clustered_rows(8000, 0)
+    ids = [f"c{i}" for i in range(8000)]
+    ann = VectorStore(dim=768, engine=ann_engine, device=cuda, mesh=[cuda] * p)
+    exact = VectorStore(dim=768, engine=exact_engine, device=cuda, mesh=[cuda] * p)
+    for s in (ann, exact):
+        s.add(ids, rows)
+        s.delete(ids[50:90])
+    monkeypatch.setenv("IMATCH_IVF_NPROBE", "1000000")
+    q = np.concatenate([rows[:8], _unit_rows(8, 3)])
+    for nq in (1, 16):
+        assert ann.query(q[:nq], n_results=10) == exact.query(q[:nq], n_results=10)
+
+
+def test_ivf_on_card_matches_cpu(cuda):
+    """The same centroids on the card and the CPU: the same assignments
+    and member lists, the probe's ids, scores within 1e-5 (fp32 products
+    in another order)."""
+    import numpy as np
+
+    from imatch_tpu_torch.index import ivf
+
+    rows = _clustered_rows(20000, 1)
+    valid = np.ones(20000, bool)
+    valid[::17] = False
+    cents = ivf.train_centroids(rows, valid, n_clusters=64, seed=2).numpy()
+    assign = ivf.assign_rows(rows, cents)
+    np.testing.assert_array_equal(ivf.assign_rows(torch.from_numpy(rows).to(cuda), cents), assign)
+    cpu, stats = ivf.pack_ivf_stats(rows, valid, cents, assign)
+    card, card_stats = ivf.pack_ivf_stats(rows, valid, cents, assign, device=cuda)
+    assert torch.equal(card.members.cpu(), cpu.members)
+    np.testing.assert_array_equal(card_stats["counts"], stats["counts"])
+    q = torch.from_numpy(np.concatenate([rows[:4], _unit_rows(12, 4)]))
+    for n_probe in (1, 8, 64):
+        s_cpu, i_cpu = ivf.ivf_topk(q, cpu, k=10, n_probe=n_probe)
+        s_card, i_card = ivf.ivf_topk(q.to(cuda), card, k=10, n_probe=n_probe)
+        assert torch.equal(i_card.cpu(), i_cpu)
+        assert float((s_card.cpu() - s_cpu).abs().max()) <= 1e-5
+
+
+def test_ivf_append_patch_equals_repack_on_card(cuda):
+    """Rows appended to a built ivf store on the card are assigned against
+    its centroids and written into free member slots, without a k-means
+    run or a rebuild; the member lists equal a repack's."""
+    import numpy as np
+
+    from imatch_tpu_torch.index import ivf
+    from imatch_tpu_torch.index.store import VectorStore
+
+    rows = _clustered_rows(3100, 3)
+    s = VectorStore(dim=768, engine="ivf", device=cuda)
+    s.add([f"a{i}" for i in range(3000)], rows[:3000])
+    s.query(rows[:1], n_results=3)
+    s.add([f"b{i}" for i in range(64)], torch.from_numpy(rows[3000:3064]).to(cuda))  # from the card
+    s.add([f"c{i}" for i in range(36)], rows[3064:])
+    st = s.stats()
+    assert (st["patched_mutations"], st["rebuild_mutations"], st["ivf"]["last_mode"]) == (2, 0, "train")
+    _, state = s._device_corpus
+    h = s._ivf_host
+    repack, stats = ivf.pack_ivf_stats(s._emb, s._alive, h["cents"], h["assign"], device=cuda)
+    w = min(state.members.shape[1], repack.members.shape[1])
+    assert torch.equal(state.members[:, :w], repack.members[:, :w])
+    assert bool((state.members[:, w:] == -1).all()) and bool((repack.members[:, w:] == -1).all())
+    np.testing.assert_array_equal(stats["counts"], h["counts"])
+    s.delete([f"b{i}" for i in range(2)])  # a validity write: the member lists stay
+    assert s.stats()["patched_mutations"] == 3
+    got = [r[0] for r in s.query(rows[3000:3004], n_results=1)["ids"]]
+    assert got[2:] == ["b2", "b3"] and not {"b0", "b1"} & set(got)

@@ -333,9 +333,10 @@ def test_same_ops_write_the_same_bytes(tmp_path, monkeypatch):
 
 
 def test_load_ignores_an_ivf_sidecar(tmp_path):
-    """A JAX ivf store's snapshot carries an ``ivf`` sidecar, which the
-    port ignores (it has no IVF tier yet); the port's next save collects
-    it, as JAX's save does when it has no IVF state."""
+    """A JAX ivf store's snapshot carries an ``ivf`` sidecar. A tilemax
+    store of either package serves exact answers beside it, keeps its IVF
+    host state through the load and writes it again at its next save, so
+    an ivf store started later on the directory need not retrain."""
     emb = _rows(10, 300, dim=16)
     d = str(tmp_path / "store")
     src = JaxStore(engine="ivf")
@@ -350,7 +351,15 @@ def test_load_ignores_an_ivf_sidecar(tmp_path):
     exact.add(ids=[f"v{i}" for i in range(300)], embeddings=emb)
     _same_contents(ref, got)
     _same_answers(exact, got, emb[:5])
-    got.save(d)
-    assert not any(f.startswith("ivf") for f in os.listdir(d))
-    with open(os.path.join(d, "manifest.json")) as f:
-        assert "ivf" not in json.load(f)
+    saved = {}
+    for name, store in (("jax", ref), ("torch", got)):
+        out = str(tmp_path / name)
+        store.save(out)
+        with open(os.path.join(out, "manifest.json")) as f:
+            side = json.load(f)["ivf"]
+        assert [f for f in os.listdir(out) if f.startswith("ivf")] == [side]
+        with np.load(os.path.join(out, side)) as z:
+            saved[name] = {k: z[k] for k in z.files}
+    assert sorted(saved["jax"]) == sorted(saved["torch"])
+    for key, value in saved["jax"].items():
+        np.testing.assert_array_equal(saved["torch"][key], value)
