@@ -3,7 +3,8 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase, the contract's lines
+    python3 chip_smoke.py --phase NAME    # identify, build and one phase (PHASES below)
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -69,7 +70,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    /api/upload-folder (a fused chunk of 42 frames padded to 64, a host
    tail of 5, duplicates, an empty and an undecodable file), then an image
    and a text search, with the K1-K4 launch counts read around them, and
-   the fused chunk's stages timed (W8A8 beside the bf16 tower at B = 64).
+   the fused chunk's stages timed (W8A8 beside the bf16 tower at B = 64);
+   then the W8A8 tower against the fp32 tower on the card.
 8. The third slice end to end: the app at longclip-l14-248 over a store of
    2^20 rows, once with IMATCH_SCORE_DTYPE=int8 and once with
    IMATCH_INDEX_ENGINE=tilemax-host; uploads that patch the built index,
@@ -132,9 +134,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    patched member lists equal to a repack's, 64 deletes, growth past a
    lowered IMATCH_IVF_REBUILD_FRAC retraining exactly once, ``save`` with
    its ``ivf-<gen>.npz`` sidecar and a ``load`` answering the same without
-   a k-means run. (c) Slice 1's app on that store over HTTP: uploads, an
-   image search whose first result is the upload, a text search; K2 held
-   to the tower calls that hooks count, K1 to none. (d) ``sharded`` at P =
+   a k-means run. (c) Slice 1's app on that store over HTTP: two rounds
+   of uploads, an image search whose first result is an upload after the
+   first and a text search after the second; each round's uploads patched
+   up to the first that lands in a pruned cluster (which drops the index
+   for the round's search to repair, without a k-means run), and at least
+   one upload patched; K2 held to the tower calls that hooks count, K1 to
+   none. (d) ``sharded`` at P =
    1 and at 4 logical shards on the card, bf16 and fp32, at Q = 1 and 16:
    ids and distances bit for bit the ``tilemax`` engine's, K1 launched P
    times an engine call; patched adds, deletes and updates equal to a
@@ -142,8 +148,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    across a sidecar restart at 4 shards. Where more than one card is
    visible the sharded checks run over every card; otherwise a line says
    that no multi-card run took place.
+8f. The eleventh slice, the native decoder, client.py and the operations
+   scripts, on slice 1's embedder after 8e. (a) The port's native decode
+   pool (runtime/loader.py, built with g++ into build/): whether it is
+   native, and if not what is missing (g++, the codec headers); a 16-bit
+   gray PNG equal to its high byte in all three channels, and 8-bit RGB,
+   RGBA, LA, palette with tRNS, 1-bit PNGs, a JPEG at quality 90 and a
+   lossless WebP equal to PIL's pixels; 64 PNGs and 64 JPEGs at 240x320
+   timed on the pool and on a PIL thread pool. (b) The app over HTTP
+   driven by imatch_tpu_torch/client.py: health, an upload and its 409,
+   the 16-bit PNG (its id the host pHash of its high byte), a batched
+   folder of 32, text, image and multimodal searches, 16 texts and 8
+   images in one request each, a metadata edit, a filter whose text holds
+   a ``/`` added and deleted, reset; K1 and K2 held to the engine and
+   tower calls. (c) The scripts through their ``main``: init_index twice,
+   ingest_folder over 64 frames on disk (img/s), migrate_from_reference
+   from a synthetic Chroma sqlite of 16384 WAL vectors x 768 and 64 rows
+   pruned from the WAL that ``--reembed`` embeds on the card (K2), the
+   migrated directory loaded on the card answering 16 queries with the
+   brute force's ids; launches held as in (b). (d) stress_sharded_store at
+   100_000 x 256 over 8 logical shards of cuda:0: every checkpoint equal to
+   its numpy oracle at a full probe, with its time and peak memory.
 9. A cut-depth vit-b32 tower on the card against the same weights on the
-   CPU, and the W8A8 longclip tower against the fp32 tower on the card.
+   CPU.
 10. The two experiment entry points, python -m imatch_tpu_torch.scripts.
    exp_int4_kernel (K5) and exp_pallas_search (K6 beside K1), run to the
    end with the K5, K6 and tensor-core K1 launch counts read around them
@@ -153,12 +180,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    (``library_device_ms``), and every other kernels-line entry at its own
    shape (K1 Q = 1 and 16, K1 int8, K3 and K4 at 16448 bf16 rows and at
    the Moondream prefill's 760 and 12160, K5 at each tile, K6). Events of back-to-back calls time the host where it
-   launches more slowly than the card runs (K2 at B = 1). Late, because a
-   profiler session slows the host's later launches. A reading the traces
-   lost (a long process's late traces drop events) is null: not measured.
+   launches more slowly than the card runs (K2 at B = 1). It runs in a
+   process of its own (``chip_smoke.py --child device``) on inputs of the
+   same shapes, after every CUDA-event time: a profiler session slows the
+   host's later launches, and a long process's late traces drop events. A
+   reading the traces lost is null: not measured.
 12. POST /api/profile/start and /stop on a small app (vit-b32): 409s on
    misuse, and a trace file that holds K1's and K2's kernels. It runs in a
-   process of its own (``chip_smoke.py --phase profile``), whose first
+   process of its own (``chip_smoke.py --child profile``), whose first
    trace is whole, on the kernels phase 2 built.
 
 The device breakdowns attribute profiler events to K1-K6 by kernel
@@ -344,24 +373,26 @@ def k2_case(shape, causal, dtype, kv_len=None) -> dict:
     return row
 
 
+K2_CASES = [
+    ((32, 16, 257, 64), False, None),  # ViT-L/14 image tower, 32 images
+    ((32, 12, 248, 64), True, None),  # LongCLIP text tower, 32 texts
+    ((32, 12, 50, 64), False, None),  # ViT-B/32 image tower
+    ((32, 8, 77, 64), True, None),  # ViT-B/32 text tower
+    ((4, 4, 77, 64), False, 0),  # every key masked: rows write 0
+    ((4, 4, 130, 64), False, 70),  # keys past kv_len masked
+    ((1, 16, 257, 64), False, None),  # one upload's image tower call
+    ((1, 12, 248, 64), True, None),  # one text query's tower call
+    ((64, 16, 257, 64), False, None),  # the bulk-ingest chunk's image tower
+    ((1, 16, 729, 72), False, None),  # the Moondream vision tower, one upload
+    ((16, 16, 729, 72), False, None),  # the Moondream vision tower, a folder's chunk
+]
+
+
 def phase_k2() -> list:
     import torch
 
-    cases = [
-        ((32, 16, 257, 64), False, None),  # ViT-L/14 image tower, 32 images
-        ((32, 12, 248, 64), True, None),  # LongCLIP text tower, 32 texts
-        ((32, 12, 50, 64), False, None),  # ViT-B/32 image tower
-        ((32, 8, 77, 64), True, None),  # ViT-B/32 text tower
-        ((4, 4, 77, 64), False, 0),  # every key masked: rows write 0
-        ((4, 4, 130, 64), False, 70),  # keys past kv_len masked
-        ((1, 16, 257, 64), False, None),  # one upload's image tower call
-        ((1, 12, 248, 64), True, None),  # one text query's tower call
-        ((64, 16, 257, 64), False, None),  # the bulk-ingest chunk's image tower
-        ((1, 16, 729, 72), False, None),  # the Moondream vision tower, one upload
-        ((16, 16, 729, 72), False, None),  # the Moondream vision tower, a folder's chunk
-    ]
     rows = []
-    for shape, causal, kv_len in cases:
+    for shape, causal, kv_len in K2_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             rows.append(k2_case(shape, causal, dtype, kv_len))
     bad = [r for r in rows if not r["ok"]]
@@ -370,44 +401,143 @@ def phase_k2() -> list:
     return rows
 
 
-def phase_device(k2_rows, traced_rows) -> None:
-    """Phase 11: each kernel's device time (``device_ms``, its own kernel
-    intervals a call in a torch.profiler trace) and its share of its bound
-    (``device_pct_of_bound``): K2 and SDPA at each phase-3 case, and every
-    other kernels-line case at its own shape (the rows that kept a
-    ``_trace`` call). It runs last: after a profiler session the host
-    launches more slowly on the card's machine (CUDA events read K2 at
-    B = 1 about twice as slow), so every CUDA-event time is taken before
-    it. A reading the traces lost is None (``device_ms``)."""
+# K3 and K4 cases of the kernels line: the bulk-ingest chunk's and the
+# Moondream W8A8 prefill's rows, bf16
+K34_TRACED = [
+    *((64 * 257, kernel, d) for kernel, d in (("K3", 1024), ("K3", 4096), ("K4", 1024))),
+    *((r, kernel, d) for r in (760, 16 * 760) for kernel, d in (("K3", 2048), ("K3", 8192), ("K4", 2048))),
+]
+
+
+def trace_specs() -> list:
+    """Phase 11's calls, each a spec whose fields (but ``key``) name the
+    phase 3-5b row it times: K2 (and SDPA where the row has a library
+    time) at every phase-3 case, K1 bf16 at Q = 1 and 16 with tile 512, K1
+    int8 at Q = 1, K3 and K4 at K34_TRACED, K5 at each tile, K6 at (640,
+    2048)."""
+    specs = [
+        {"key": "K2", "shape": list(shape), "causal": causal, "kv_len": shape[2] if kv_len is None else kv_len, "dtype": dname}
+        for shape, causal, kv_len in K2_CASES
+        for dname in ("bfloat16", "float32")
+    ]
+    specs += [{"key": "K1", "q": q, "dtype": "bfloat16", "tile_n": 512} for q in (1, 16)]
+    specs.append({"key": "K1_int8", "q": 1})
+    specs += [{"key": kernel, "kernel": kernel, "rows": r, "d": d, "dtype": "bfloat16"} for r, kernel, d in K34_TRACED]
+    specs += [{"key": "K5", "tile_n": t} for t in (512, 1024, 2048)]
+    specs.append({"key": "K6", "dp": 640, "tile_n": 2048})
+    return specs
+
+
+def trace_call(spec, cache):
+    """The zero-argument call ``spec`` times, on inputs of its row's shapes
+    built here (corpora shared through ``cache``)."""
+    import torch
+
+    from imatch_tpu_torch.index.search import _int8_queries, prepare_device_corpus
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
+    from imatch_tpu_torch.ops.kernels.int4_topk import int4_tile_max
+    from imatch_tpu_torch.ops.kernels.topk import tile_max, tile_max_int8
+    from imatch_tpu_torch.ops.kernels.topk_t import tile_max_t
+    from imatch_tpu_torch.scripts.exp_pallas_search import make_data
+
+    key = spec["key"]
+    if key == "K2":
+        q, k, v = _k2_inputs(tuple(spec["shape"]), getattr(torch, spec["dtype"]))
+        return lambda: flash_mha(q, k, v, causal=spec["causal"], kv_len=spec["kv_len"])
+    if key in ("K1", "K1_int8"):
+        if "corpus" not in cache:
+            cache["corpus"] = make_corpus(1 << 20, 768)
+        corpus, valid = cache["corpus"]
+        if key == "K1":
+            dtype = getattr(torch, spec["dtype"])
+            dc = prepare_device_corpus(corpus, valid, tile_n=spec["tile_n"], score_dtype=dtype, device="cuda")
+            qs = corpus[: spec["q"]].to(dtype)
+            return lambda: tile_max(qs, dc.scoring, dc.valid, spec["tile_n"])
+        dc = prepare_device_corpus(corpus, valid, tile_n=512, score_dtype=torch.int8, margin=16, device="cuda")
+        qi, qscale = _int8_queries(corpus[: spec["q"]].clone(), dc.scoring.shape[1])
+        args = (qi, dc.scoring, qscale, dc.scale, dc.valid, dc.tile_n)
+        return lambda: tile_max_int8(*args)
+    if key in ("K3", "K4"):
+        return _k34_calls(key, spec["rows"], spec["d"], torch.bfloat16, 0)[1]
+    if key == "K5":
+        if "k5" not in cache:
+            cache.pop("corpus", None)
+            cache["k5"] = _k5_inputs(1 << 20, 512, 8)
+        qbf, packed, side = cache["k5"]
+        return lambda: int4_tile_max(qbf, packed, side, spec["tile_n"])
+    scoring, qs = make_data(1 << 20, spec["dp"], "cuda")
+    st = scoring.T.contiguous()
+    del scoring
+    return lambda: tile_max_t(qs, st, spec["tile_n"])
+
+
+def phase_device_child(out_path: str) -> None:
+    """Phase 11 proper (``--child device``, a process of its own): each
+    spec's device time (``device_ms``, its own kernel intervals a call in a
+    torch.profiler trace) and, for K2, SDPA's on the same inputs
+    (``library_device_ms``). Written to ``out_path`` as JSON. A reading the
+    traces lost is None (``device_ms``)."""
     import torch
     import torch.nn.functional as F
 
-    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
+    cache = {}
+    readings = []
+    for spec in trace_specs():
+        fn = trace_call(spec, cache)
+        reading = {"spec": spec, "device_ms": device_ms(fn, spec["key"])}
+        if spec["key"] == "K2" and spec["kv_len"] == spec["shape"][2]:
+            q, k, v = _k2_inputs(tuple(spec["shape"]), getattr(torch, spec["dtype"]))
+            reading["library_device_ms"] = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=spec["causal"]))
+        log(f"{spec['key']} device " + json.dumps(reading))
+        readings.append(reading)
+        del fn
+    with open(out_path, "w") as f:
+        json.dump(readings, f)
 
-    def timed(row, fn, key):
-        row["device_ms"] = device_ms(fn, key)
-        row["device_pct_of_bound"] = (
-            None if row["device_ms"] is None else 100 * row["bound_ms"] / row["device_ms"]
-        )
 
-    for row in k2_rows:
-        q, k, v = _k2_inputs(tuple(row["shape"]), getattr(torch, row["dtype"]))
-        causal, kv_len = row["causal"], row["kv_len"]
-        timed(row, lambda: flash_mha(q, k, v, causal=causal, kv_len=kv_len), "K2")
-        row["library_device_ms"] = (
-            device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
-            if row["library_ms"] is not None
-            else None
-        )
-        keys = ("shape", "causal", "kv_len", "dtype", "kernel_ms", "device_ms", "library_ms",
-                "library_device_ms", "bound_ms", "device_pct_of_bound")
-        log("K2 device " + json.dumps({k: row[k] for k in keys}))
-    for row in traced_rows:
-        fn, key = row.pop("_trace")
-        timed(row, fn, key)
-        shape = {k: row[k] for k in ("kernel", "rows", "n", "d", "dp", "q", "tile_n", "dtype") if k in row}
-        keys = ("kernel_ms", "device_ms", "bound_ms", "device_pct_of_bound")
-        log(f"{key} device " + json.dumps({**shape, **{k: row[k] for k in keys}}))
+def phase_device(tables: dict) -> None:
+    """Phase 11 in a process of its own (``chip_smoke.py --child device``):
+    a profiler session slows every later launch of its process, and a long
+    process's late traces drop events (a whole run in one process lost 14
+    of its 18 SDPA readings), so the traces run on a fresh process's
+    inputs of the same shapes after every CUDA-event time is taken. Each reading lands on the
+    row its spec names in ``tables`` (key -> rows): ``device_ms``,
+    ``device_pct_of_bound`` and, for K2, ``library_device_ms``; a lost
+    reading is None, a row no spec names keeps None. A table the run has
+    not filled (the phase run alone) takes no reading: the child's lines
+    show them."""
+    out_path = os.path.abspath(os.path.join("build", "chip_smoke_device.json"))
+    if os.path.exists(out_path):
+        os.remove(out_path)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--child", "device", "--out", out_path],
+        capture_output=True,
+        text=True,
+        timeout=600,
+    )
+    sys.stdout.write(proc.stdout)
+    sys.stderr.write(proc.stderr[-4000:])
+    log(f"phase 11 (own process): rc {proc.returncode}, {time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 11 failed in its own process (rc {proc.returncode})")
+    with open(out_path) as f:
+        readings = json.load(f)
+    for rows in tables.values():
+        for row in rows:
+            row.setdefault("device_ms", None)
+            row.setdefault("device_pct_of_bound", None)
+    for reading in readings:
+        spec = reading["spec"]
+        match = {k: v for k, v in spec.items() if k != "key"}
+        for row in tables.get("K34" if spec["key"] in ("K3", "K4") else spec["key"], ()):
+            if all(row.get(k) == v for k, v in match.items()):
+                row["device_ms"] = reading["device_ms"]
+                row["device_pct_of_bound"] = (
+                    None if reading["device_ms"] is None else 100 * row["bound_ms"] / reading["device_ms"]
+                )
+                if spec["key"] == "K2":
+                    row["library_device_ms"] = reading.get("library_device_ms")
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -443,7 +573,7 @@ def brute_force_topk(queries, corpus, valid, k):
     return s[:, :k], i[:, :k]
 
 
-def k1_case(corpus, valid, nq, dtype, tile_n, k=10, trace=False) -> dict:
+def k1_case(corpus, valid, nq, dtype, tile_n, k=10) -> dict:
     import torch
 
     from imatch_tpu_torch.index.search import prepare_device_corpus, tilemax_topk
@@ -501,8 +631,6 @@ def k1_case(corpus, valid, nq, dtype, tile_n, k=10, trace=False) -> dict:
         "bound_by": bound_by,
     }
     log("K1 " + json.dumps(row))
-    if trace:  # a kernels-line entry: the last phase takes its device time
-        row["_trace"] = (lambda: tile_max(qs, dc.scoring, dc.valid, tile_n), "K1")
     return row
 
 
@@ -514,8 +642,7 @@ def phase_k1() -> list:
     for dtype in (torch.bfloat16, torch.float32):
         for nq in (1, 16):
             for tile_n in (512, 2048):  # the tilemax and pallas engines
-                trace = dtype == torch.bfloat16 and tile_n == 512
-                rows.append(k1_case(corpus, valid, nq, dtype, tile_n, trace=trace))
+                rows.append(k1_case(corpus, valid, nq, dtype, tile_n))
     # the tensor-core kernel's later 16-query blocks (grid.y = ceil(Q/16)):
     # a partial second block, and the batch route's 256 queries
     for nq in (17, N_BIG_BATCH):
@@ -541,10 +668,9 @@ def _k34_bound(kernel, rows, d, itemsize):
     return bound_ms(n_bytes, _QUANT_OPS[kernel] * rows * d, "float32")
 
 
-def k34_case(kernel, rows, d, dtype, seed=0) -> dict:
-    """One K3 or K4 case against its plain version on the same inputs:
-    codes within 1 LSB with under 1e-3 (K3) or 2e-3 (K4) of them
-    differing, scales within rtol 1e-6 (tests/test_quant_kernel.py)."""
+def _k34_calls(kernel, rows, d, dtype, seed):
+    """Inputs of (rows, d) with a zero row, then the kernel's call, its
+    plain version's and the bar on differing codes."""
     import torch
 
     from imatch_tpu_torch.ops.kernels.quantize import (
@@ -560,11 +686,19 @@ def k34_case(kernel, rows, d, dtype, seed=0) -> dict:
     gamma = torch.randn(d, generator=g, device="cuda") * 0.5 + 1
     beta = torch.randn(d, generator=g, device="cuda") * 0.1
     if kernel == "K3":
-        run, plain, frac_bar = (lambda: quant_rows(x)), (lambda: quant_rows_plain(x)), 1e-3
-    else:
-        run = lambda: ln_quant_rows(x, gamma, beta, 1e-5)  # noqa: E731
-        plain = lambda: ln_quant_rows_plain(x, gamma, beta, 1e-5)  # noqa: E731
-        frac_bar = 2e-3
+        return x, (lambda: quant_rows(x)), (lambda: quant_rows_plain(x)), 1e-3
+    run = lambda: ln_quant_rows(x, gamma, beta, 1e-5)  # noqa: E731
+    plain = lambda: ln_quant_rows_plain(x, gamma, beta, 1e-5)  # noqa: E731
+    return x, run, plain, 2e-3
+
+
+def k34_case(kernel, rows, d, dtype, seed=0) -> dict:
+    """One K3 or K4 case against its plain version on the same inputs:
+    codes within 1 LSB with under 1e-3 (K3) or 2e-3 (K4) of them
+    differing, scales within rtol 1e-6 (tests/test_quant_kernel.py)."""
+    import torch
+
+    x, run, plain, frac_bar = _k34_calls(kernel, rows, d, dtype, seed)
     q, s = run()
     torch.cuda.synchronize()
     qr, sr = plain()
@@ -593,8 +727,6 @@ def k34_case(kernel, rows, d, dtype, seed=0) -> dict:
         "bound_by": bound_by,
     }
     log(f"{kernel} " + json.dumps(row))
-    if rows in (64 * 257, *MD_PREFILL_ROWS) and dtype == torch.bfloat16:
-        row["_trace"] = (run, kernel)
     return row
 
 
@@ -689,8 +821,6 @@ def k1_int8_case(dc, corpus, valid, nq, k=10) -> dict:
         "bound_by": bound_by,
     }
     log("K1 int8 " + json.dumps(row))
-    if nq == 1:
-        row["_trace"] = (lambda: tile_max_int8(*args), "K1_int8")
     return row
 
 
@@ -717,6 +847,22 @@ def phase_k1_int8() -> list:
 # -- phase 5b ----------------------------------------------------------------
 
 
+def _k5_inputs(n, d, q):
+    """8 unit bf16 queries and the packed int4 corpus (a tombstone every
+    97th row) of scripts/exp_int4_kernel.py's shapes."""
+    import torch
+
+    from imatch_tpu_torch.ops.kernels.int4_topk import pack_int4
+
+    corpus, _ = make_corpus(n, d, seed=5)
+    valid = torch.arange(n, device="cuda") % 97 != 0
+    packed, side, _, _ = pack_int4(corpus, valid)
+    del corpus
+    g = torch.Generator(device="cuda").manual_seed(6)
+    qbf = torch.randn((q, d), generator=g, device="cuda")
+    return (qbf / qbf.norm(dim=1, keepdim=True)).bfloat16(), packed, side
+
+
 def phase_k5() -> list:
     """K5 at scripts/exp_int4_kernel.py's shapes: 8 bf16 queries of 512 over
     2^20 rows packed (N, 256), a tombstone every 97th row, tile_n 512, 1024
@@ -725,16 +871,10 @@ def phase_k5() -> list:
     line's shape."""
     import torch
 
-    from imatch_tpu_torch.ops.kernels.int4_topk import int4_tile_max, int4_tile_max_plain, pack_int4
+    from imatch_tpu_torch.ops.kernels.int4_topk import int4_tile_max, int4_tile_max_plain
 
     n, d, q = 1 << 20, 512, 8
-    corpus, _ = make_corpus(n, d, seed=5)
-    valid = torch.arange(n, device="cuda") % 97 != 0
-    packed, side, _, _ = pack_int4(corpus, valid)
-    del corpus
-    g = torch.Generator(device="cuda").manual_seed(6)
-    qbf = torch.randn((q, d), generator=g, device="cuda")
-    qbf = (qbf / qbf.norm(dim=1, keepdim=True)).bfloat16()
+    qbf, packed, side = _k5_inputs(n, d, q)
     rows = []
     for tile_n in (512, 1024, 2048):
         got = int4_tile_max(qbf, packed, side, tile_n)
@@ -761,7 +901,6 @@ def phase_k5() -> list:
             "bound_by": bound_by,
         }
         log("K5 " + json.dumps(row))
-        row["_trace"] = (call, "K5")
         rows.append(row)
     if not all(r["ok"] for r in rows):
         raise AssertionError("K5 disagrees with its plain version")
@@ -805,8 +944,6 @@ def phase_k6() -> list:
                     bound_by=bound_by,
                 )
             log("K6 " + json.dumps(row))
-            if "bound_ms" in row:
-                row["_trace"] = (lambda qs=qs, st=st, t=tile_n: tile_max_t(qs, st, t), "K6")
             rows.append(row)
         del st
         torch.cuda.empty_cache()
@@ -1788,7 +1925,7 @@ def phase_surface(state, app, device) -> dict:
     unchunked = emb.embed_images_device(img_frames)
     pngs24 = [_png_bytes(f) for f in img_frames]
     t = time.perf_counter()
-    app_mod._decode_all(pngs24)
+    app_mod.default_loader().decode_each(pngs24)
     times["image_batch24_decode_ms"] = (time.perf_counter() - t) * 1e3
     with environment(IMATCH_QUERY_PIXEL_BUDGET=str(IMAGE_BATCH_BUDGET)):
         times["image_batch24_embed_ms"] = _host_ms(lambda: emb.embed_images_device(img_frames), device, iters=3)
@@ -3485,13 +3622,38 @@ def ivf_store_check(x, valid, queries, device, root) -> tuple:
     return loaded, out, ok
 
 
+def _expected_patches(host, rows) -> tuple:
+    """Which of ``rows``, uploaded one at a time onto a store whose IVF
+    host state is ``host`` (its centroids and pruned map), land in a
+    cluster pruned from the device table for having no member (their
+    nearest centroid is ``assign_rows``'s), and how many are patched:
+    those before the first such row. That row drops the index, as JAX's
+    patch.py declines it, and the rows after it find none to patch until
+    a search's build repairs it."""
+    import numpy as np
+
+    from imatch_tpu_torch.index import ivf as ivf_mod
+
+    clusters = ivf_mod.assign_rows(np.asarray(rows, np.float32), host["cents"])
+    pruned = [bool(host["pruned_map"][c] < 0) for c in clusters.tolist()]
+    return pruned, pruned.index(True) if True in pruned else len(pruned)
+
+
 def ivf_http_check(store, embedder, device, root) -> tuple:
-    """(c) Slice 1's app with IMATCH_INDEX_ENGINE=ivf on ``store``:
-    uploads, an image search at the default probe whose first result is
-    the uploaded image, a text search; K2's launches held to the tower
-    calls that hooks count, K1 to none (IVF runs no K1)."""
+    """(c) Slice 1's app with IMATCH_INDEX_ENGINE=ivf on ``store``: two
+    rounds of IVF_UPLOADS uploads, each followed by a search (an image
+    search whose first result is an upload of the first round, then a
+    text search); K2's launches held to the tower calls that hooks count,
+    K1 to none (IVF runs no K1). The uploads of a round are patched into
+    the IVF index up to the first whose nearest centroid is pruned
+    (``_expected_patches`` on the host state before the round); that one
+    drops the index, and the round's search repairs it without a k-means
+    run. The repair gives the clusters the first round landed in members,
+    so the second round's uploads, of frames like the first's, find them
+    live: at least one upload over HTTP must be patched."""
     import shutil
 
+    import numpy as np
     import torch
 
     from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
@@ -3503,26 +3665,35 @@ def ivf_http_check(store, embedder, device, root) -> tuple:
     with environment(IMATCH_INDEX_ENGINE="ivf", IMATCH_CAPTIONER="null"):
         state = AppState(root=root, embedder=embedder, device=device, autoload=False)
     state.store = store
-    patched0 = store.stats()["patched_mutations"]
-    pngs = [synthetic_png(8300 + i) for i in range(IVF_UPLOADS)]
-    times, ids = {}, []
+    rounds = [[synthetic_png(8300 + 100 * r + i) for i in range(IVF_UPLOADS)] for r in range(2)]
+    times, ids, hosts, stats = {}, [[], []], [], [store.stats()]
     counts_of = dict(clip_vision=embedder.model.vision, clip_text=embedder.model.text)
-    with ServerThread(create_app(state), port := _free_port()), call_counts(**counts_of) as towers:
+    with ServerThread(create_app(state), port := _free_port()), call_counts(**counts_of) as towers, counted_trains() as trains:
         http = HttpClient(port)
         _sync(device)
         flash_mha.launches = tile_max.launches = 0
-        for i, png in enumerate(pngs):
-            status, body, times[f"upload_{i}_ms"] = http.request("POST", "/api/upload", files=[("file", f"i{i}.png", png)])
-            assert status == 200 and body["success"], body
-            ids.append(body["metadata"]["id"])
-        status, body, times["image_search_ms"] = http.request(
-            "POST", "/api/search/image", [("limit", "10")], [("file", "q.png", pngs[1])]
-        )
-        assert status == 200, body
-        image_top = [r["id"] for r in body["results"]]
-        status, body, times["text_search_ms"] = http.request("POST", "/api/search/text", [("query", TEXT_QUERY), ("limit", "10")])
-        assert status == 200, body
-        text_n = len(body["results"])
+        for r, pngs in enumerate(rounds):
+            hosts.append({k: np.array(store._ivf_host[k]) for k in ("cents", "pruned_map")})
+            for i, png in enumerate(pngs):
+                status, body, times[f"upload_{r}_{i}_ms"] = http.request(
+                    "POST", "/api/upload", files=[("file", f"r{r}i{i}.png", png)]
+                )
+                assert status == 200 and body["success"], body
+                ids[r].append(body["metadata"]["id"])
+            stats.append(store.stats())
+            if r == 0:
+                status, body, times["image_search_ms"] = http.request(
+                    "POST", "/api/search/image", [("limit", "10")], [("file", "q.png", pngs[1])]
+                )
+                assert status == 200, body
+                image_top = [rr["id"] for rr in body["results"]]
+            else:
+                status, body, times["text_search_ms"] = http.request(
+                    "POST", "/api/search/text", [("query", TEXT_QUERY), ("limit", "10")]
+                )
+                assert status == 200, body
+                text_n = len(body["results"])
+            stats.append(store.stats())
         _sync(device)
         launches = {"K1": tile_max.launches, "K2": flash_mha.launches}
         tower_calls = dict(towers)
@@ -3530,23 +3701,35 @@ def ivf_http_check(store, embedder, device, root) -> tuple:
     expected = {"K1": 0, "K2": nv * tower_calls["clip_vision"] + nt * tower_calls["clip_text"]}
     if torch.device(device).type != "cuda":
         expected["K2"] = 0
-    out = {
-        **times,
-        "image_top": image_top[:3],
-        "upload_first": image_top[:1] == [ids[1]],
-        "text_results": text_n,
-        "uploads_patched": store.stats()["patched_mutations"] - patched0,
-        "tower_calls": tower_calls,
-        "launches": launches,
-        "expected_launches": expected,
-    }
+    out = {**times, "image_top": image_top[:3], "upload_first": image_top[:1] == [ids[0][1]], "text_results": text_n}
+    ok = out["upload_first"] and text_n == 10
+    for r in range(2):
+        rows = np.asarray(store.get(ids=ids[r], include=["embeddings"])["embeddings"], np.float32)
+        lands_pruned, patchable = _expected_patches(hosts[r], rows)  # the state the round met
+        before, uploaded, searched = stats[2 * r], stats[2 * r + 1], stats[2 * r + 2]
+        dropped = patchable < IVF_UPLOADS
+        rnd = {
+            "uploads_land_in_pruned_cluster": lands_pruned,
+            "uploads_patched": uploaded["patched_mutations"] - before["patched_mutations"],
+            "expected_patched": patchable,
+            "index_drops": uploaded["rebuild_mutations"] - before["rebuild_mutations"],
+            "ivf_after_search": searched["ivf"],
+        }
+        out[f"round_{r}"] = rnd
+        ok = ok and (
+            rnd["uploads_patched"] == patchable
+            and rnd["index_drops"] == dropped
+            and (not dropped or searched["ivf"]["last_mode"] == "repair")
+        )
+    out["expected_patched"] = sum(out[f"round_{r}"]["expected_patched"] for r in range(2))
+    out.update(k_means_runs=trains["n"], tower_calls=tower_calls, launches=launches, expected_launches=expected)
     del state
     gc.collect()
     shutil.rmtree(root, ignore_errors=True)
     ok = (
-        out["upload_first"]
-        and text_n == 10
-        and out["uploads_patched"] == IVF_UPLOADS
+        ok
+        and out["expected_patched"] >= 1
+        and trains["n"] == 0
         and launches == expected
         and (launches["K2"] > 0 or torch.device(device).type != "cuda")
     )
@@ -3764,6 +3947,465 @@ def phase_ivf(embedder, device="cuda", rows=IVF_ROWS, centres=IVF_CENTRES) -> di
     return {"launches": {"K1": k1["K1"], "K1_mma": k1["K1_mma"], "K2": http["launches"]["K2"]}}
 
 
+# -- phase 8f ----------------------------------------------------------------
+
+OPS_FOLDER = 32  # frames of the client's batched folder upload
+OPS_INGEST = 64  # frames ingest_folder reads from disk
+OPS_DECODE = 64  # frames a decode timing takes, PNG and JPEG each
+OPS_MIGRATE_ROWS = 16384  # live Chroma rows with WAL vectors
+OPS_MIGRATE_PRUNED = 64  # live rows pruned from the WAL: --reembed embeds them
+OPS_STRESS = (100_000, 256)  # stress_sharded_store's default rows and width
+
+
+def gray16_frame(h: int = 48, w: int = 64):
+    """A 16-bit grayscale frame whose high byte spans the whole range."""
+    import numpy as np
+
+    rng = np.random.default_rng(16)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = (xx * 65535 // max(w - 1, 1) + yy * 97).astype(np.int64)
+    return np.clip(base + rng.integers(-300, 301, (h, w)), 0, 65535).astype(np.uint16)
+
+
+def _encoded(img, fmt: str, **kw) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def decoder_check(device) -> tuple:
+    """(a) The native decode pool: its state (and what is missing where it
+    is not built); the format grid, each frame equal to PIL's pixels and
+    the 16-bit PNG to its high byte in all three channels; 64 PNGs and 64
+    JPEGs at 240x320 decoded by the pool and by a PIL thread pool."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    from imatch_tpu_torch.runtime import loader as loader_mod
+
+    loader = loader_mod.NativeImageLoader()
+    out = {"native": loader.native, "threads": loader.threads}
+    log(f"decoder: NativeImageLoader().native = {loader.native}")
+    if not loader.native:
+        report = loader_mod.toolchain_report()
+        missing = [h for h, ok in report["headers"].items() if not ok]
+        log(
+            "decoder: the native pool is not built here, uploads decode with PIL: "
+            f"g++ {report['g++'] or 'missing'}, headers missing {missing or 'none'}, "
+            f"build error {report['build_error']!r}"
+        )
+        out["toolchain"] = report
+    rgb = np.asarray(Image.open(io.BytesIO(synthetic_png(110, 60, 80))).convert("RGB"))
+    gray = rgb[..., 0]
+    rgba = np.concatenate([rgb, rgb[..., :1]], axis=-1)
+    pal = Image.fromarray(rgb).quantize(16)
+    deep = gray16_frame()
+    frames = {
+        "gray16-png": _encoded(Image.fromarray(deep), "PNG"),
+        "rgb-png": _encoded(Image.fromarray(rgb), "PNG"),
+        "rgba-png": _encoded(Image.fromarray(rgba, "RGBA"), "PNG"),
+        "la-png": _encoded(Image.fromarray(np.stack([gray, 255 - gray], -1), "LA"), "PNG"),
+        "palette-trns-png": _encoded(pal, "PNG", transparency=3),
+        "1bit-png": _encoded(Image.fromarray(gray > 127), "PNG"),
+        "jpeg-q90": _encoded(Image.fromarray(rgb), "JPEG", quality=90),
+        "webp-lossless": _encoded(Image.fromarray(rgb), "WEBP", lossless=True),
+    }
+    equal = {}
+    for name, data in frames.items():
+        got = loader.decode_batch([data], on_error="raise")[0]
+        if name == "gray16-png" and loader.native:
+            want = np.repeat((deep >> 8).astype(np.uint8)[..., None], 3, axis=-1)
+        else:
+            want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        equal[name] = got.shape == want.shape and bool((got == want).all())
+    out["equal"] = equal
+
+    pngs = [synthetic_png(9100 + i) for i in range(OPS_DECODE)]
+    jpegs = [_encoded(Image.open(io.BytesIO(p)).convert("RGB"), "JPEG", quality=90) for p in pngs]
+
+    def pil_rgb(data):
+        with Image.open(io.BytesIO(data)) as im:
+            return np.asarray(im.convert("RGB"))
+
+    workers = min(8, os.cpu_count() or 1)
+    with ThreadPoolExecutor(workers) as pool:
+        for fmt, batch in (("png", pngs), ("jpeg", jpegs)):
+            loader.decode_batch(batch[:4])  # warm
+            list(pool.map(pil_rgb, batch[:4]))
+            t0 = time.perf_counter()
+            got = loader.decode_batch(batch, on_error="raise")
+            out[f"{fmt}_pool_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / len(batch)
+            t0 = time.perf_counter()
+            want = list(pool.map(pil_rgb, batch))
+            out[f"{fmt}_pil_threads_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / len(batch)
+            out[f"{fmt}_batch_equal_pil"] = all(bool((a == b).all()) for a, b in zip(got, want))
+    out["pil_threads"] = workers
+    loader.close()
+    ok = all(equal.values()) and out["png_batch_equal_pil"] and out["jpeg_batch_equal_pil"]
+    return out, ok
+
+
+@contextlib.contextmanager
+def counted_tower_classes(vision_cls, text_cls):
+    """Forward calls of every module of the two tower classes, counted for a
+    ``with`` block (a global hook: the scripts build their own embedders)."""
+    import torch
+
+    counts = {"clip_vision": 0, "clip_text": 0}
+
+    def hook(mod, _args):
+        if type(mod) is vision_cls:
+            counts["clip_vision"] += 1
+        elif type(mod) is text_cls:
+            counts["clip_text"] += 1
+
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
+    try:
+        yield counts
+    finally:
+        handle.remove()
+
+
+def _launch_window(engine_qs, towers, cfg, device, launches) -> tuple:
+    """The K1 and K2 launches a window's engine calls and tower calls imply,
+    against the counts read (0 on the CPU, which runs the plain versions)."""
+    import torch
+
+    expected = {
+        "K1": sum(q == 1 for q in engine_qs),
+        "K1_mma": sum(q >= 2 for q in engine_qs),
+        "K2": cfg.vision.num_layers * towers["clip_vision"] + cfg.text.num_layers * towers["clip_text"],
+    }
+    if torch.device(device).type != "cuda":
+        expected = dict.fromkeys(expected, 0)
+    return expected, launches == expected
+
+
+def _read_launches():
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
+    from imatch_tpu_torch.ops.kernels.topk import tile_max
+
+    return {"K1": tile_max.launches - tile_max.mma_launches, "K1_mma": tile_max.mma_launches, "K2": flash_mha.launches}
+
+
+def _zero_launches():
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
+    from imatch_tpu_torch.ops.kernels.topk import tile_max
+
+    flash_mha.launches = tile_max.launches = tile_max.mma_launches = 0
+
+
+def client_check(embedder, device, root) -> tuple:
+    """(b) The port's app on ``embedder`` over HTTP, driven by the port's
+    client.py: health, an upload and its 409, the 16-bit PNG (its id the
+    host pHash of its high byte), a batched folder of 32, text, image and
+    multimodal searches, 16 texts and 8 images in one request each, a
+    metadata edit, a filter with a ``/`` added and deleted, reset. K1 and
+    K2 launches held to the engine and tower calls."""
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from imatch_tpu_torch.client import ImageMatchClient
+    from imatch_tpu_torch.ops.phash import image_id
+    from imatch_tpu_torch.pipeline.state import AppState
+    from imatch_tpu_torch.runtime.loader import default_loader
+    from imatch_tpu_torch.serving.app import create_app
+
+    shutil.rmtree(root, ignore_errors=True)
+    files_dir = os.path.join(root, "files")
+    os.makedirs(files_dir)
+    files = []
+    for i in range(OPS_FOLDER + 1):
+        path = os.path.join(files_dir, f"frame {i:02d}.png")
+        with open(path, "wb") as f:
+            f.write(synthetic_png(9200 + i))
+        files.append(path)
+    deep = gray16_frame()
+    deep_path = os.path.join(files_dir, "deep16.png")
+    Image.fromarray(deep).save(deep_path)
+    if default_loader().native:
+        deep_rgb = np.repeat((deep >> 8).astype(np.uint8)[..., None], 3, axis=-1)
+    else:  # JAX's PIL fallback: PIL's pixels, stated in (a)
+        deep_rgb = np.asarray(Image.open(deep_path).convert("RGB"))
+    with environment(IMATCH_CAPTIONER="null"):
+        state = AppState(root=os.path.join(root, "app"), embedder=embedder, device=device, autoload=False)
+    store = state.store
+    counts_of = dict(clip_vision=embedder.model.vision, clip_text=embedder.model.text)
+    texts = [TEXT_QUERY] + [f"a photo number {i} of a tool" for i in range(15)]
+    times, checks = {}, {}
+    with environment(no_proxy="127.0.0.1,localhost", NO_PROXY="127.0.0.1,localhost"), ServerThread(
+        create_app(state), port := _free_port()
+    ), call_counts(**counts_of) as towers, engine_calls(store) as calls:
+        c = ImageMatchClient(f"http://127.0.0.1:{port}", timeout=600)
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            r = fn()
+            times[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+            return r
+
+        _sync(device)
+        _zero_launches()
+        checks["health"] = timed("health", c.health)["status"] == "ok"
+        first = timed("upload", lambda: c.upload(files[0], description="first"))
+        again = timed("upload_again", lambda: c.upload(files[0]))
+        checks["upload_then_409"] = bool(first["success"]) and again.get("duplicate") is True
+        first_id = first["metadata"]["id"]
+        got = timed("upload_16bit", lambda: c.upload(deep_path))
+        checks["16bit_id_is_high_byte_phash"] = got["metadata"]["id"] == image_id(Image.fromarray(deep_rgb))
+        folder = timed("folder", lambda: c.upload_folder_batched(files[1:]))
+        checks["folder"] = folder["successful"] == OPS_FOLDER and folder["failed"] == 0
+        folder_ids = {r["filename"]: r.get("id") for r in folder["results"]}
+        text = timed("text_search", lambda: c.search_text(TEXT_QUERY, limit=10))
+        image = timed("image_search", lambda: c.search_image(files[1], limit=5))
+        checks["image_self_first"] = image[0]["id"] == folder_ids[os.path.basename(files[1])]
+        mm = timed("multimodal_search", lambda: c.search_multimodal(files[2], MULTIMODAL_QUERY, limit=5))
+        checks["text_and_multimodal"] = len(text) == 10 and len(mm) == 5
+        tb = timed("text_batch_16", lambda: c.search_text_batch(texts, limit=10))
+        checks["text_batch"] = len(tb) == 16 and [h["id"] for h in tb[0]] == [h["id"] for h in text]
+        ib = timed("image_batch_8", lambda: c.search_image_batch(files[1:9], limit=3))
+        checks["image_batch_self_first"] = len(ib) == 8 and all(
+            row[0]["id"] == folder_ids[os.path.basename(p)] for row, p in zip(ib, files[1:9])
+        )
+        timed("edit", lambda: c.update_metadata(first_id, "edited"))
+        checks["edit"] = c.image(first_id)["description"] == "edited"
+        c.add_filter("indoor/outdoor scene")
+        listed = "indoor/outdoor scene" in c.filters()
+        c.delete_filter("indoor/outdoor scene")
+        checks["filter_with_slash"] = listed and "indoor/outdoor scene" not in c.filters()
+        timed("reset", c.reset)
+        checks["reset"] = c.images() == [] and store.count() == 0
+        _sync(device)
+        launches = _read_launches()
+        tower_calls = dict(towers)
+        engine_qs = list(calls)
+    expected, launches_ok = _launch_window(engine_qs, tower_calls, embedder.cfg, device, launches)
+    out = {
+        "checks": checks,
+        "times": times,
+        "engine_queries": engine_qs,
+        "tower_calls": tower_calls,
+        "launches": launches,
+        "expected_launches": expected,
+    }
+    del state, store
+    gc.collect()
+    shutil.rmtree(root, ignore_errors=True)
+    return out, all(checks.values()) and launches_ok
+
+
+def _chroma_db(path, ids, vecs, pruned):
+    """A reference deployment's chroma.sqlite3 (Chroma 0.4-0.6 layout): the
+    live rows ``ids`` (each a filename), WAL adds with the ``vecs`` of all
+    but the ``pruned`` ids."""
+    import sqlite3
+
+    os.makedirs(path, exist_ok=True)
+    con = sqlite3.connect(os.path.join(path, "chroma.sqlite3"))
+    con.executescript(
+        """
+        CREATE TABLE collections (id TEXT PRIMARY KEY, name TEXT, dimension INTEGER);
+        CREATE TABLE segments (id TEXT PRIMARY KEY, type TEXT, scope TEXT, collection TEXT);
+        CREATE TABLE embeddings (id INTEGER PRIMARY KEY AUTOINCREMENT, segment_id TEXT,
+            embedding_id TEXT, seq_id BLOB, created_at TEXT);
+        CREATE TABLE embedding_metadata (id INTEGER, key TEXT, string_value TEXT,
+            int_value INTEGER, float_value REAL, bool_value INTEGER);
+        CREATE TABLE embeddings_queue (seq_id INTEGER PRIMARY KEY, created_at TEXT,
+            operation INTEGER, topic TEXT, id TEXT, vector BLOB, encoding TEXT, metadata TEXT);
+        """
+    )
+    con.execute("INSERT INTO collections VALUES ('col-1', 'image-match', ?)", (vecs.shape[1],))
+    con.execute("INSERT INTO segments VALUES ('seg-md', 'urn:chroma:segment/metadata/sqlite', 'METADATA', 'col-1')")
+    rows = list(enumerate(ids, start=1))
+    con.executemany("INSERT INTO embeddings (id, segment_id, embedding_id) VALUES (?, 'seg-md', ?)", rows)
+    con.executemany(
+        "INSERT INTO embedding_metadata VALUES (?, 'filename', ?, NULL, NULL, NULL)", [(pk, f"{i}.png") for pk, i in rows]
+    )
+    pruned = set(pruned)
+    con.executemany(
+        "INSERT INTO embeddings_queue VALUES (?, '', 0, 'persistent://default/default/col-1', ?, ?, 'FLOAT32', '{}')",
+        [(pk, i, vecs[pk - 1].astype("<f4").tobytes()) for pk, i in rows if i not in pruned],
+    )
+    con.commit()
+    con.close()
+
+
+def scripts_check(embedder, device, root, config=SLICE_CONFIG, migrate_rows=OPS_MIGRATE_ROWS, pruned=OPS_MIGRATE_PRUNED) -> tuple:
+    """(c) The operations scripts through their ``main``: init_index twice;
+    ingest_folder over 64 frames on disk (its img/s); migrate_from_reference
+    from a synthetic Chroma sqlite of ``migrate_rows`` WAL vectors and
+    ``pruned`` rows pruned from the WAL, which ``--reembed`` embeds on
+    ``device`` (K2); then the migrated directory loaded on ``device``
+    answering 16 queries with the brute force's ids. K1 and K2 launches
+    held to the engine and tower calls. The scripts run on their default
+    device, the card (IMATCH_DEVICE=cpu where ``device`` is the CPU)."""
+    import logging
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from imatch_tpu_torch.index.store import VectorStore
+    from imatch_tpu_torch.scripts import ingest_folder, init_index, migrate_from_reference
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out, checks = {}, {}
+    device_env = {} if torch.device(device).type == "cuda" else {"IMATCH_DEVICE": "cpu"}
+    # init_index, twice
+    init_root = os.path.join(root, "init")
+    for n in (1, 2):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), environment(**device_env):
+            rc = init_index.main([init_root])
+        text = buf.getvalue()
+        checks[f"init_index_{n}"] = rc == 0 and ("initialized empty index" if n == 1 else "existing index") in text
+        log(f"init_index run {n}: " + " | ".join(text.strip().splitlines()))
+    vision_cls, text_cls = type(embedder.model.vision), type(embedder.model.text)
+
+    # ingest_folder over frames on disk, then migrate --reembed: one window
+    frames_dir = os.path.join(root, "frames")
+    os.makedirs(frames_dir)
+    for i in range(OPS_INGEST):
+        with open(os.path.join(frames_dir, f"f{i:03d}.png"), "wb") as f:
+            f.write(synthetic_png(9300 + i))
+    rng = np.random.default_rng(120)
+    dim = embedder.cfg.projection_dim
+    n_live = migrate_rows + pruned
+    vecs = rng.standard_normal((n_live, dim)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    ids = [f"img_{i:06d}" for i in range(n_live)]
+    pruned_ids = ids[migrate_rows:]
+    mig_root = os.path.join(root, "deploy")
+    processed = os.path.join(mig_root, "static", "processed")
+    os.makedirs(processed)
+    for j, id_ in enumerate(pruned_ids):
+        with open(os.path.join(processed, f"{id_}.png"), "wb") as f:
+            f.write(synthetic_png(9400 + j))
+    _chroma_db(os.path.join(mig_root, "chroma_data"), ids, vecs, pruned_ids)
+
+    ingest_log = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            ingest_log.append(record.getMessage())
+
+    handler = Keep(logging.INFO)
+    ingest_logger = logging.getLogger("imatch.ingest_folder")
+    ingest_logger.addHandler(handler)
+    level = ingest_logger.level
+    ingest_logger.setLevel(logging.INFO)
+    env = dict(
+        IMATCH_CLIP_CONFIG=config, IMATCH_CAPTIONER="null", IMATCH_SEGMENTER="null", IMATCH_DATA_DIR="index_data", **device_env
+    )
+    try:
+        with environment(**env), counted_tower_classes(vision_cls, text_cls) as towers:
+            _sync(device)
+            _zero_launches()
+            t0 = time.perf_counter()
+            rc = ingest_folder.main(
+                [frames_dir, "--root", os.path.join(root, "ingest"), "--batch", "64", "--captioner", "null"]
+            )
+            _sync(device)
+            out["ingest_s"] = time.perf_counter() - t0
+            out["ingest_img_per_s"] = OPS_INGEST / out["ingest_s"]
+            checks["ingest_folder"] = rc == 0 and any(f"done: {OPS_INGEST} indexed, 0 duplicates, 0 errors" in m for m in ingest_log)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                migrate_from_reference.main(
+                    ["--chroma-dir", os.path.join(mig_root, "chroma_data"), "--root", mig_root, "--reembed"]
+                )
+            _sync(device)
+            out["migrate_s"] = time.perf_counter() - t0
+            text = buf.getvalue()
+            summary = json.loads(text[: text.index("\nDone")])
+            out["migrate_summary"] = summary
+            checks["migrate"] = (
+                summary["rows_migrated"] == n_live
+                and summary["vectors_from_wal"] == migrate_rows
+                and summary["vectors_reembedded"] == pruned
+            )
+            _sync(device)
+            t0 = time.perf_counter()
+            store = VectorStore.load(summary["data_dir"], persist=False, device=device)
+            _sync(device)
+            out["load_s"] = time.perf_counter() - t0
+            with engine_calls(store) as calls:
+                queries = vecs[:16] + 0.05 * rng.standard_normal((16, dim)).astype(np.float32)
+                queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+                t0 = time.perf_counter()
+                got = store.query(queries, n_results=10)
+                out["query16_ms"] = (time.perf_counter() - t0) * 1e3
+            _sync(device)
+            launches = _read_launches()
+            tower_calls = dict(towers)
+            engine_qs = list(calls)
+    finally:
+        ingest_logger.removeHandler(handler)
+        ingest_logger.setLevel(level)
+    log("ingest_folder: " + " | ".join(ingest_log[-2:]))
+    held = store.get(include=["embeddings"])
+    mat = torch.as_tensor(np.asarray(held["embeddings"], np.float32))
+    brute_s, brute_i = brute_force_topk(torch.as_tensor(queries), mat, torch.ones(mat.shape[0], dtype=torch.bool), 10)
+    want = [[held["ids"][j] for j in row] for row in brute_i.tolist()]
+    checks["migrated_store_ids_equal_brute_force"] = got["ids"] == want
+    checks["reembedded_rows_unit"] = bool(
+        np.allclose(np.linalg.norm(mat[-pruned:].numpy(), axis=1), 1.0, atol=1e-3)
+    )
+    expected, launches_ok = _launch_window(engine_qs, tower_calls, embedder.cfg, device, launches)
+    checks["launch_counts"] = launches_ok and (launches["K2"] > 0 or torch.device(device).type != "cuda")
+    out.update(checks=checks, engine_queries=engine_qs, tower_calls=tower_calls, launches=launches, expected_launches=expected)
+    del store, held, mat
+    gc.collect()
+    shutil.rmtree(root, ignore_errors=True)
+    return out, all(checks.values())
+
+
+def stress_check(device, n, d) -> tuple:
+    """(d) stress_sharded_store at n x d over its 8 logical shards of one
+    device: every checkpoint equal to the numpy oracle; its wall time
+    and, on the card, its peak memory."""
+    import torch
+
+    from imatch_tpu_torch.scripts import stress_sharded_store
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    summary = stress_sharded_store.run(n, d, dev)
+    log("stress: " + json.dumps(summary, default=str))
+    return summary, summary["ok"]
+
+
+def phase_ops(embedder, device="cuda", config=SLICE_CONFIG, migrate_rows=OPS_MIGRATE_ROWS, stress=OPS_STRESS) -> dict:
+    """Phase 8f: the native decoder, client.py and the operations scripts,
+    on slice 1's embedder: (a) the decoder, (b) the app over HTTP through
+    the client, (c) init_index, ingest_folder, migrate_from_reference
+    --reembed and the migrated store, (d) the sharded stress run. Returns
+    the K1 and K2 launches of (b) and (c). (A small config, store and
+    stress size on the CPU rehearse the same control flow.)"""
+    t0 = time.perf_counter()
+    dec, dec_ok = decoder_check(device)
+    log("decoder: " + json.dumps(dec))
+    cli, cli_ok = client_check(embedder, device, os.path.join("build", "chip_smoke_ops_client"))
+    log("client: " + json.dumps(cli))
+    scr, scr_ok = scripts_check(embedder, device, os.path.join("build", "chip_smoke_ops_scripts"), config, migrate_rows)
+    log("scripts: " + json.dumps(scr))
+    gc.collect()
+    st, st_ok = stress_check(device, *stress)
+    log(f"phase 8f: {time.perf_counter() - t0:.1f} s")
+    failed = [name for name, ok in (("decoder", dec_ok), ("client", cli_ok), ("scripts", scr_ok), ("stress", st_ok)) if not ok]
+    if failed:
+        raise AssertionError(f"phase 8f failed: {failed}")
+    launches = {k: cli["launches"][k] + scr["launches"][k] for k in ("K1", "K1_mma", "K2")}
+    return {"launches": launches, "stress": st}
+
+
 def phase_reference() -> None:
     """vit-b32 (depth cut to 2 layers a tower) on the card, bf16 and fp32,
     against the same weights in fp32 on the CPU: per-row cosine of the
@@ -3965,7 +4607,7 @@ def phase_profile_apart() -> None:
     ``trace``). The child loads the kernels phase 2 built."""
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--phase", "profile"],
+        [sys.executable, os.path.abspath(__file__), "--child", "profile"],
         capture_output=True,
         text=True,
         timeout=600,
@@ -4132,9 +4774,123 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
     return {"kernels": entries}
 
 
-def main() -> int:
+# -- the run ----------------------------------------------------------------
+#
+# Each step below is one phase with its own setup, on a context that the
+# steps before it filled: the kernel tables (``rows``), the launch counts
+# of the main path (``launches``), slice 1's embedder and the experiment
+# scripts' lines. ``main`` runs them all in order; ``--phase NAME`` runs
+# identify, build and the one step on a fresh context, so it calls what
+# the whole run calls, and a step that needs slice 1's embedder builds it
+# as phase 6 does.
+
+
+def _add_launches(ctx, **counts) -> None:
+    for k, v in counts.items():
+        ctx["launches"][k] = ctx["launches"].get(k, 0) + v
+
+
+def _slice_embedder(ctx):
+    """Slice 1's embedder: phase 6's, or (a phase run alone) the same
+    config's seeded weights built here."""
+    if "embedder" not in ctx:
+        from imatch_tpu_torch.pipeline.embedder import ClipEmbedder
+
+        ctx["embedder"] = ClipEmbedder(SLICE_CONFIG, device="cuda")
+    return ctx["embedder"]
+
+
+def step_table(key, phase):
+    def step(ctx):
+        ctx["rows"][key] = phase()
+
+    return step
+
+
+def step_slice(ctx) -> None:
+    with environment(IMATCH_CAPTIONER="null"):  # the CLIP slices run without a captioner
+        launches, ctx["embedder"], surface = phase_slice()
+    # slice 8's requests (phase 6b) beside slice 1's
+    _add_launches(
+        ctx, K1=launches["K1"] + surface["K1"], K2=launches["K2"] + surface["K2"], K1_mma=surface["K1_mma"]
+    )
+
+
+def step_w8a8(ctx) -> None:
+    with environment(IMATCH_CAPTIONER="null"):
+        launches, w8a8 = phase_w8a8()
+    _add_launches(ctx, K3=launches["K3"], K4=launches["K4"])
+    phase_w8a8_fidelity(w8a8)
+
+
+def step_tiers(ctx) -> None:
+    with environment(IMATCH_CAPTIONER="null"):
+        tiers = phase_tiers(_slice_embedder(ctx))
+    # the int8 tier's device-resident folder adds its K2
+    _add_launches(ctx, K1_int8=sum(c["K1_int8"] for c in tiers.values()), K2=tiers["int8"]["K2_ingest"])
+
+
+def step_moondream(ctx) -> None:
+    _add_launches(ctx, K2_md=phase_moondream(_slice_embedder(ctx))["launches"])
+
+
+def step_clip_path(phase):
+    """Slices 9-11 (the cutouts and their searches, the sharded engines'
+    K1 and the towers' K2, the client's and the scripts' K1 and K2)."""
+
+    def step(ctx):
+        launches = phase(_slice_embedder(ctx))["launches"]
+        _add_launches(ctx, **{k: launches[k] for k in ("K1", "K1_mma", "K2")})
+
+    return step
+
+
+def step_md_int8(ctx) -> None:
     import torch
 
+    ctx.pop("embedder", None)  # slice 1's embedder is done with
+    gc.collect()
+    torch.cuda.empty_cache()
+    _add_launches(ctx, **phase_md_int8()["launches"])
+
+
+def step_scripts(ctx) -> None:
+    launches, ctx["script_lines"] = phase_scripts()
+    _add_launches(ctx, **launches)
+
+
+PHASES = {
+    "identify": lambda ctx: phase_identify(),
+    "build": lambda ctx: phase_build(),
+    "k2": step_table("K2", phase_k2),
+    "k1": step_table("K1", phase_k1),
+    "k1_int8": step_table("K1_int8", phase_k1_int8),
+    "k34": step_table("K34", phase_k34),
+    "k5": step_table("K5", phase_k5),
+    "k6": step_table("K6", phase_k6),
+    "slice": step_slice,
+    "w8a8": step_w8a8,
+    "tiers": step_tiers,
+    "moondream": step_moondream,
+    "u2net": step_clip_path(phase_u2net),
+    "ivf": step_clip_path(phase_ivf),
+    "ops": step_clip_path(phase_ops),
+    "md_int8": step_md_int8,
+    "reference": lambda ctx: phase_reference(),
+    "scripts": step_scripts,
+    "device": lambda ctx: phase_device(ctx["rows"]),
+    "profile": lambda ctx: phase_profile_apart(),
+}
+
+
+def main(only=None) -> int:
+    """Every phase in order, then the contract's lines; with ``only``,
+    identify, build and that phase, and no contract line."""
+    import torch
+
+    if only is not None and only not in PHASES:
+        print(f"chip_smoke: unknown phase {only!r}; one of {', '.join(PHASES)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
@@ -4142,59 +4898,20 @@ def main() -> int:
     # phase 6b runs the app's warmup itself, timed: the apps' background
     # warmup would launch kernels inside the other phases' counted windows
     os.environ["IMATCH_WARMUP"] = "0"
-    phase_identify()
-    phase_build()
-    k2_rows = phase_k2()
-    k1_rows = phase_k1()
-    k1i8_rows = phase_k1_int8()
-    k34_rows = phase_k34()
-    k5_rows = phase_k5()
-    k6_rows = phase_k6()
-    with environment(IMATCH_CAPTIONER="null"):  # the CLIP slices run without a captioner
-        launches, embedder, surface = phase_slice()
-        gc.collect()  # the first slice's app and 2^20-row store
+    ctx = {"rows": {}, "launches": {}}
+    names = list(PHASES) if only is None else list(dict.fromkeys(("identify", "build", only)))
+    for name in names:
+        PHASES[name](ctx)
+        gc.collect()  # each phase's apps and stores
         torch.cuda.empty_cache()
-        w8a8_launches, w8a8 = phase_w8a8()
-        launches.update(K3=w8a8_launches["K3"], K4=w8a8_launches["K4"])
-        tiers = phase_tiers(embedder)
-    launches["K1_int8"] = sum(c["K1_int8"] for c in tiers.values())
-    # slice 8's requests: phase 6b, and its device ingest on the int8 tier
-    launches["K1"] += surface["K1"]
-    launches["K2"] += surface["K2"] + tiers["int8"]["K2_ingest"]
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches["K2_md"] = phase_moondream(embedder)["launches"]
-    gc.collect()
-    torch.cuda.empty_cache()
-    u2 = phase_u2net(embedder)["launches"]  # slice 9's cutouts and their searches
-    launches["K1"] += u2["K1"]
-    launches["K2"] += u2["K2"]
-    gc.collect()
-    torch.cuda.empty_cache()
-    ivf = phase_ivf(embedder)["launches"]  # slice 10: the sharded engines' K1, the towers' K2
-    launches["K1"] += ivf["K1"]
-    launches["K2"] += ivf["K2"]
-    del embedder
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches.update(phase_md_int8()["launches"])
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_reference()
-    phase_w8a8_fidelity(w8a8)
-    del w8a8
-    gc.collect()
-    torch.cuda.empty_cache()
-    script_launches, script_lines = phase_scripts()
-    launches.update(script_launches)
-    launches["K1_mma"] += surface["K1_mma"] + u2["K1_mma"] + ivf["K1_mma"]
-    traced = [r for rows in (k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows) for r in rows if "_trace" in r]
-    phase_device(k2_rows, traced)
-    phase_profile_apart()
+    if only is not None:
+        log(f"chip_smoke --phase {only}: passed in {time.perf_counter() - t0:.1f} s")
+        return 0
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
-    for line in script_lines:
+    rows = ctx["rows"]
+    for line in ctx["script_lines"]:
         print(line)
-    print(json.dumps(kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launches)))
+    print(json.dumps(kernels_line(rows["K2"], rows["K1"], rows["K1_int8"], rows["K34"], rows["K5"], rows["K6"], ctx["launches"])))
     print(
         json.dumps(
             {
@@ -4211,17 +4928,35 @@ def main() -> int:
     return 0
 
 
-def main_profile() -> int:
-    """``--phase profile``: phase 12 alone, as ``phase_profile_apart`` runs it."""
+def child(name: str, out_path=None) -> int:
+    """``--child device|profile``: phase 11 or 12 proper, in the process
+    of its own that phase_device or phase_profile_apart starts, on the
+    kernels phase 2 built."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
     os.environ["IMATCH_WARMUP"] = "0"
-    phase_profile()
+    if name == "device":
+        phase_device_child(out_path)
+    else:
+        phase_profile()
     return 0
 
 
+def _cli(argv) -> int:
+    if not argv:
+        return main()
+    if len(argv) == 2 and argv[0] == "--phase":
+        return main(argv[1])
+    if argv == ["--child", "profile"]:
+        return child("profile")
+    if len(argv) == 4 and argv[:2] == ["--child", "device"] and argv[2] == "--out":
+        return child("device", argv[3])
+    print("usage: chip_smoke.py [--phase NAME]", file=sys.stderr)
+    return 2
+
+
 if __name__ == "__main__":
-    sys.exit(main_profile() if sys.argv[1:] == ["--phase", "profile"] else main())
+    sys.exit(_cli(sys.argv[1:]))

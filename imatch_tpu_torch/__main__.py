@@ -51,7 +51,9 @@ the CLIP, captioner and segmenter weights loaded before the server starts listen
 so the first request pays neither. The store loads from IMATCH_DATA_DIR at start; a
 restart with the same directory serves the same images. SIGTERM and
 SIGINT compact the journal into a snapshot before exit (status 0, or 1 if
-the snapshot failed).
+the snapshot failed). The decode pool's threads are joined after that, at
+interpreter exit (``default_loader``'s ``atexit``); a request still
+decoding then keeps its pool (the loader's in-flight guard).
 """
 
 from __future__ import annotations
@@ -82,6 +84,13 @@ def main() -> None:
         from imatch_tpu_torch.ops.kernels import _build
 
         _build.build()
+    # the native decode pool is built (g++) before the server listens, as
+    # the kernels are; without g++ or the codec headers uploads decode
+    # with PIL, as in the JAX app, and the log says so
+    from imatch_tpu_torch.runtime.loader import default_loader
+
+    if not default_loader().native:
+        logging.getLogger("imatch.run").warning("native decode pool unavailable: decoding uploads with PIL")
     app = create_app(root=os.environ.get("IMATCH_ROOT", "."), device=device)
     app.state.get_embedder()
 

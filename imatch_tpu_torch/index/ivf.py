@@ -12,12 +12,11 @@ engine (index/search.py) stays the accuracy reference; a full probe
   the k-means products and updates, the assignment, the probe and both
   rescore phases. The host packs the member lists (``pack_members``,
   numpy, the same code as JAX's) and keeps the bookkeeping.
-- Random draws use an explicit ``torch.Generator`` on the CPU seeded with
-  ``seed``: the live-row sample, then the k-means init (rows drawn with
-  replacement, weighted by validity, as ``jax.random.choice`` with
-  ``p=``). Torch cannot reproduce JAX's draws, so an index trained here
-  differs from JAX's; ``kmeans_init`` and ``lloyd`` are separate so that
-  the same init gives the same centroids.
+- Random draws are JAX's own, computed in numpy on the host
+  (index/jax_draws.py, threefry2x32): the live-row sample
+  (``jax.random.randint``), then the k-means init (``jax.random.choice``
+  with ``p=``), from ``split(key(seed))``. The same seed draws the same
+  rows as JAX, so both packages start Lloyd from the same centroids.
 - The Lloyd update accumulates each cluster's rows with ``index_add_``
   (JAX: a one-hot matrix product). Both sum in fp32; the order differs,
   so centroids agree with JAX's to fp32 rounding, not bit for bit.
@@ -40,6 +39,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from imatch_tpu_torch.index import jax_draws
 from imatch_tpu_torch.index.search import final_topk, stable_top
 from imatch_tpu_torch.ops.kernels.topk import NEG_INF
 
@@ -83,20 +83,6 @@ def _scores(rows: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
 
 def _normalise(x: torch.Tensor) -> torch.Tensor:
     return x / torch.clamp(torch.linalg.norm(x, dim=1, keepdim=True), min=1e-9)
-
-
-def kmeans_init(
-    train: torch.Tensor, tvalid: torch.Tensor, n_clusters: int, generator: torch.Generator
-) -> torch.Tensor:
-    """(C, D) fp32 initial centroids: ``n_clusters`` rows of ``train`` drawn
-    with replacement, each valid row equally likely (JAX ``jax.random.
-    choice(key, n, (C,), p=valid / valid.sum())``), L2-normalised. The draw
-    runs on the CPU with ``generator``."""
-    probs = tvalid.detach().to(device="cpu", dtype=torch.float64)
-    if not bool(probs.any()):  # no live row (JAX's 0/0 weights): draw any
-        probs = torch.ones_like(probs)
-    idx = torch.multinomial(probs, n_clusters, replacement=True, generator=generator)
-    return _normalise(train[idx.to(train.device)].float())
 
 
 def lloyd(
@@ -168,19 +154,13 @@ def train_centroids(
         base = max(n_live, 1)
         n_clusters = max(1, min(base, int(4 * np.sqrt(base))))
     n_clusters = min(n_clusters, n)
-    g = torch.Generator().manual_seed(seed)
-    if n > sample:
-        live_idx = np.flatnonzero(valid_h)
-        if live_idx.size:
-            sel = torch.randint(0, live_idx.size, (sample,), generator=g).numpy()
-            idx = torch.from_numpy(live_idx[sel])
-        else:
-            idx = torch.randint(0, n, (sample,), generator=g)
-        idx = idx.to(corpus.device)
+    idx, init_idx = jax_draws.kmeans_draws(valid_h, n_clusters, seed, sample)
+    if idx is not None:
+        idx = torch.from_numpy(idx.astype(np.int64)).to(corpus.device)
         train, tvalid = corpus[idx], valid[idx]
     else:
         train, tvalid = corpus, valid
-    init = kmeans_init(train, tvalid, n_clusters, g)
+    init = _normalise(train[torch.from_numpy(init_idx.astype(np.int64)).to(train.device)].float())
     return lloyd(train, tvalid, init, iters=iters, chunk=chunk)
 
 

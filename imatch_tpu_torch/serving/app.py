@@ -27,21 +27,25 @@ default on, as in JAX): the towers at B = 1 and a store query at each k
 and Q bucket, so the kernels are built and loaded and the first request
 pays neither.
 
-Uploads decode with PIL, a batch's files on a thread pool: the JAX app's
-loader takes this path where its C++ decoder is not built, and both give
-the same pixels for lossless formats. A new upload, a folder with at
-least one success and a metadata edit end at ``state.snapshot()``, as in
-the JAX app: the journal already holds each op, and the snapshot compacts
-it once it has grown.
+Uploads decode where the JAX app decodes them, through the port's copy of
+its native pool (runtime/loader.py, libjpeg-turbo/libpng/libwebp on C++
+worker threads): a single upload and each query image through
+``decode_image_bytes``, a batch's files through ``decode_each`` (all
+submitted, then each waited in order), the samples directory by path.
+Both apps give the same pixels (a 16-bit PNG is reduced to its high
+byte, not clipped as PIL's ``convert`` does) and so the same ids. The
+loader falls back to PIL for AVIF and where g++ or the codec headers are
+missing, as JAX's does (a batch's fallbacks on a thread pool), and logs
+it. A new upload, a folder with at least one success and a metadata edit
+end at ``state.snapshot()``, as in the JAX app: the journal already holds
+each op, and the snapshot compacts it once it has grown.
 """
 
 from __future__ import annotations
 
-import io
 import logging
 import os
 import time
-from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -53,6 +57,7 @@ from imatch_tpu_torch.pipeline.backfill import process_filter_on_all_images
 from imatch_tpu_torch.pipeline.filters import passes_filters
 from imatch_tpu_torch.pipeline.ingest import process_batch, process_image
 from imatch_tpu_torch.pipeline.state import AppState
+from imatch_tpu_torch.runtime.loader import decode_image_bytes, default_loader
 from imatch_tpu_torch.serving.asgi import App, JSONResponse, UploadFile
 from imatch_tpu_torch.serving.ui import register_ui
 from imatch_tpu_torch.utils import profiler
@@ -99,30 +104,10 @@ def _parse_float(v, default: float) -> float:
 
 
 def _open_upload(file: UploadFile) -> Image.Image:
-    with Image.open(io.BytesIO(file.content)) as im:
-        return im.convert("RGB")
-
-
-def _decode_rgb(content: bytes) -> np.ndarray:
-    with Image.open(io.BytesIO(content)) as im:
-        return np.asarray(im.convert("RGB"))
-
-
-def _decode_all(contents: List[bytes]) -> list:
-    """Decode on a thread pool; each entry is the RGB array or the
-    exception that its bytes raised."""
-    if not contents:
-        return []
-    workers = min(8, os.cpu_count() or 1, len(contents))
-    with ThreadPoolExecutor(workers, thread_name_prefix="imatch-decode") as pool:
-        futures = [pool.submit(_decode_rgb, c) for c in contents]
-    out = []
-    for fut in futures:
-        try:
-            out.append(fut.result())
-        except Exception as e:
-            out.append(e)
-    return out
+    """One upload or query image, decoded by the native pool (JAX
+    app.py:82-87); ``Image.fromarray`` copies the RGB pixels out of the
+    pool's buffer."""
+    return Image.fromarray(decode_image_bytes(file.content))
 
 
 def _maybe_remove_query_bg(state: AppState, image: Image.Image) -> Image.Image:
@@ -238,7 +223,7 @@ def create_app(
             else:
                 todo.append(f)
         images, names, raws = [], [], []
-        for f, img in zip(todo, _decode_all([f.content for f in todo])):
+        for f, img in zip(todo, default_loader().decode_each([f.content for f in todo])):
             if isinstance(img, Exception):
                 results.append(
                     {"filename": f.filename, "status": "error", "reason": f"Cannot open image: {img}"}
@@ -389,7 +374,7 @@ def create_app(
         limit = _parse_int(form.get("limit"), 10)
         remove_bg = _parse_bool(form.get("remove_bg"))
         images = []
-        for f, img in zip(files, _decode_all([f.content for f in files])):
+        for f, img in zip(files, default_loader().decode_each([f.content for f in files])):
             if isinstance(img, Exception):
                 return JSONResponse(
                     {"success": False, "error": f"Cannot open image {f.filename!r}: {img}"}, 422
@@ -563,12 +548,8 @@ def create_app(
         if not os.path.isdir(samples_dir):
             return JSONResponse({"success": False, "error": "no samples directory"}, 404)
         files = sorted(os.listdir(samples_dir))
-        contents = []
-        for f in files:
-            with open(os.path.join(samples_dir, f), "rb") as fh:
-                contents.append(fh.read())
         images, names, failed_decode = [], [], []
-        for f, img in zip(files, _decode_all(contents)):
+        for f, img in zip(files, default_loader().decode_each([os.path.join(samples_dir, f) for f in files])):
             if isinstance(img, Exception):
                 failed_decode.append({"filename": f, "status": "error", "error": str(img)})
             else:
