@@ -80,7 +80,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    K1 and K1-int8 launch counts read around them; 64 deletes and 64
    updates (patched, or on the host tier one rebuild for the updates)
    checked as in phase 6 with K1-int8; then an IMATCH_INDEX_ENGINE=auto
-   store whose device budget makes its build escalate to tilemax-host.
+   store of 2^18 rows whose 1 GiB device budget makes its build escalate
+   to tilemax-host.
 8b. The fourth slice end to end: the Moondream captioner and the yes/no
    filters at moondream2 (full width and depth, seeded random weights,
    bf16; IMATCH_CAPTIONER=moondream, a synthetic GPT-2-layout vocab of
@@ -121,8 +122,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    decode step and the yes/no chunk timed in each mode and in bf16; the
    W8A8 service's caption and yes/no chunk hold K4 to one launch and K3 to
    two a layer a prefill.
-8e. The tenth slice, the IVF tier and the sharded engines, on 2^20 rows
-   of clustered unit vectors at LongCLIP's width (4096 centres plus noise,
+8e. The tenth slice, the IVF tier and the sharded engines, on 2^17 rows
+   of clustered unit vectors at LongCLIP's width (1448 centres plus noise,
    tombstones, duplicate rows); it runs after 8c, on slice 1's embedder.
    (a) ``build_ivf`` timed whole and by stage (train, assign, pack; C by
    the default rule); at n_probe = C the ids equal a full fp32 brute force
@@ -169,6 +170,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    brute force's ids; launches held as in (b). (d) stress_sharded_store at
    100_000 x 256 over 8 logical shards of cuda:0: every checkpoint equal to
    its numpy oracle at a full probe, with its time and peak memory.
+8g. The twelfth slice, CLIP contrastive training (the step `train`),
+   after 8d. (a) imatch_tpu_torch/scripts/train_clip.py through its
+   ``train`` at vit-b32, bf16, batches of 64 drawn from 256 synthetic
+   pairs: 4 steps with ``--ckpt-every 4`` (JAX's npz keys), then
+   ``--resume`` to 5, with its log lines; the step ms (median after the
+   first), the losses, each save's and the restore's seconds. The resumed
+   run re-seeds its sampler, so its batch is the first run's first: the
+   uninterrupted state (in memory) takes a step on it whose loss must
+   equal the resumed run's (``TRAIN_RESUME_RTOL``), and one more each
+   (``TRAIN_NEXT_RTOL``). (b) That state takes 10 steps on one fixed
+   batch of 64 random pairs: the loss must fall by ``TRAIN_MIN_DROP``. (c) LongCLIP-L/14-248
+   at full width and depth, bf16, 3 steps at B = 32: step ms, images/s,
+   peak device memory; one more batch's gradients, every leaf finite and
+   non-zero, each layer's q, k and v projections included. (d) K2's
+   wrapper raises on card inputs that require grad and launches nothing;
+   no K2 launch in (a)-(c): training takes ``mha_xla``.
 9. A cut-depth vit-b32 tower on the card against the same weights on the
    CPU.
 10. The two experiment entry points, python -m imatch_tpu_torch.scripts.
@@ -2342,7 +2359,11 @@ TIERS = {
     "tilemax-host": ({"IMATCH_INDEX_ENGINE": "tilemax-host"}, "tilemax-host"),
 }
 N_TIER_UPLOADS = 4
-AUTO_BUDGET = 4 << 30  # a 4 GiB device budget: a 2^20 x 768 tilemax build escalates
+# the auto store's rows and device budget: a 2^18 x 768 tilemax build (bf16
+# scores + the fp32 copy, 1.2 GB) outgrows half of 1 GiB and escalates
+# (2^20 rows and 4 GiB until the training phase came: the run's time limit)
+AUTO_ROWS = 1 << 18
+AUTO_BUDGET = 1 << 30
 
 
 @contextlib.contextmanager
@@ -2530,14 +2551,14 @@ def phase_tiers(embedder, device="cuda", store_rows=STORE_ROWS) -> dict:
     # auto: a device budget the tilemax build would outgrow
     with environment(IMATCH_INDEX_ENGINE="auto", IMATCH_DEVICE_BYTES_BUDGET=str(AUTO_BUDGET)):
         auto = VectorStore(device=device)
-        auto.add(ids=pre_ids, embeddings=pre)
+        auto.add(ids=pre_ids[:AUTO_ROWS], embeddings=pre[:AUTO_ROWS])
         got = auto.query(text_vec, n_results=10)["ids"]
     brute, _ = _references(auto, text_vec, device)
     stats = auto.stats()
     log(
         "tiers auto: "
         + json.dumps(
-            {"engine": stats["engine"], "last_build": stats["last_build"], "budget": AUTO_BUDGET}
+            {"engine": stats["engine"], "last_build": stats["last_build"], "budget": AUTO_BUDGET, "rows": auto.count()}
         )
     )
     if stats["last_build"]["engine"] != "tilemax-host" or got != brute:
@@ -2601,7 +2622,7 @@ def plain_attention():
     from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha_plain
 
     mha = clip_model.mha
-    clip_model.mha = lambda q, k, v, *, causal=False: flash_mha_plain(q, k, v, causal=causal)
+    clip_model.mha = lambda q, k, v, *, causal=False, impl="auto": flash_mha_plain(q, k, v, causal=causal)
     try:
         yield
     finally:
@@ -3386,8 +3407,10 @@ def phase_md_int8(device="cuda", config=MD_CONFIG) -> dict:
 
 # -- phase 8e ----------------------------------------------------------------
 
-IVF_ROWS = 1 << 20
-IVF_CENTRES = 4096
+# 2^17 rows (2^20 until the training phase came: the run's time limit);
+# as many centres as the default rule's C there, 4 * sqrt(rows)
+IVF_ROWS = 1 << 17
+IVF_CENTRES = 1448
 IVF_NOISE = 0.5  # the norm of a row's noise against its unit centre
 IVF_QUERIES = 64
 IVF_ADDS = 16
@@ -4406,6 +4429,254 @@ def phase_ops(embedder, device="cuda", config=SLICE_CONFIG, migrate_rows=OPS_MIG
     return {"launches": launches, "stress": st}
 
 
+# -- phase 8g: training ------------------------------------------------------
+
+TRAIN_CONFIG = "vit-b32"
+TRAIN_LR = 1e-5  # the CLI's default
+TRAIN_BATCH = 64
+TRAIN_SYNTHETIC = 256  # random frames the CLI samples its batches from
+TRAIN_STEPS = (4, 5)  # the first run (a checkpoint at 4), then --resume to 5
+TRAIN_RESUME_RTOL = 1e-6  # the resumed run's first loss against the uninterrupted state's on its batch
+TRAIN_NEXT_RTOL = 1e-4  # the loss one update later (the backward's sums may run in another order)
+TRAIN_REPEAT = 10  # steps on one fixed batch of 64 random pairs
+TRAIN_MIN_DROP = 1.0  # the repeated batch's loss must fall by at least this (nats)
+LONG_BATCH = 32
+LONG_STEPS = 3
+
+
+@contextlib.contextmanager
+def captured_log(name):
+    """The INFO messages of logger ``name`` inside the block."""
+    import logging
+
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    lg = logging.getLogger(name)
+    handler, level = Keep(), lg.level
+    lg.addHandler(handler)
+    lg.setLevel(logging.INFO)
+    try:
+        yield lines
+    finally:
+        lg.removeHandler(handler)
+        lg.setLevel(level)
+
+
+def random_pairs(cfg, batch, g, device) -> tuple:
+    """``batch`` random pairs: standard-normal pixels and token ids drawn
+    below the eos id, eos-padded from a random length on."""
+    import torch
+
+    size, s, eos = cfg.vision.image_size, cfg.text.max_positions, cfg.text.eos_token_id
+    px = torch.randn((batch, size, size, 3), generator=g, device=device)
+    tok = torch.randint(0, eos, (batch, s), generator=g, device=device)
+    ends = torch.randint(2, s, (batch, 1), generator=g, device=device)
+    return px, torch.where(torch.arange(s, device=device)[None] >= ends, eos, tok)
+
+
+def train_cli_check(device, root, config=TRAIN_CONFIG, batch=TRAIN_BATCH) -> tuple:
+    """(a) ``train_clip`` through ``train`` (the CLI's body) at vit-b32:
+    TRAIN_STEPS[0] steps with ``--ckpt-every`` TRAIN_STEPS[0], then
+    ``--resume`` to TRAIN_STEPS[1]. The resumed run re-seeds its sampler,
+    so its batch is the first run's first: the uninterrupted state (the
+    first run's, in memory) takes a step on that batch, whose loss must
+    equal the resumed run's, and both take one more. (b) The uninterrupted
+    state then takes TRAIN_REPEAT steps on one fixed batch of random
+    pairs (``random_pairs``: the CLI's synthetic texts differ only in a
+    number, and random-init towers map its noise frames close to one
+    direction, so its loss starts at log(batch) and barely moves): the
+    loss must fall by TRAIN_MIN_DROP."""
+    import torch
+
+    from imatch_tpu_torch.models.clip.configs import get_config
+    from imatch_tpu_torch.parallel.train import make_optimizer, make_train_step
+    from imatch_tpu_torch.scripts import train_clip
+
+    ck = os.path.join(root, "ck")
+    argv = [
+        "--config", config, "--synthetic", str(TRAIN_SYNTHETIC), "--batch", str(batch),
+        "--ckpt-every", str(TRAIN_STEPS[0]), "--lr", str(TRAIN_LR), "--ckpt-dir", ck, "--device", device,
+    ]
+    with captured_log("imatch.train") as lines:
+        first = train_clip.train(train_clip.parse_args(argv + ["--steps", str(TRAIN_STEPS[0])]))
+        ckpts = sorted(os.listdir(ck))
+        args = train_clip.parse_args(argv + ["--steps", str(TRAIN_STEPS[1]), "--resume"])
+        second = train_clip.train(args)
+    out = {
+        "config": config,
+        "batch": batch,
+        "lr": TRAIN_LR,
+        "checkpoints": ckpts,
+        "losses": first.losses + second.losses,
+        "first_step_ms": 1e3 * first.step_s[0],
+        "median_step_ms_after_first": 1e3 * _p50(first.step_s[1:] + second.step_s),
+        "save_s": first.save_s + second.save_s,
+        "restore_s": second.restore_s,
+        "checkpoint_bytes": os.path.getsize(os.path.join(ck, ckpts[-1])),
+        "log": [m for m in lines if m.startswith(("resumed", "done"))],
+    }
+    ok = (
+        first.rc == second.rc == 0
+        and ckpts == [f"step_{TRAIN_STEPS[0]:08d}.npz"]
+        and f"resumed from step {TRAIN_STEPS[0]}" in lines
+        and f"done at step {TRAIN_STEPS[1]}" in lines
+        and second.state.step == TRAIN_STEPS[1]
+        and all(math.isfinite(x) for x in out["losses"])
+    )
+    cfg = get_config(config)
+    pixels, tokens = train_clip.batch_source(args, cfg, torch.device(device))()
+    dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32  # the CLI's
+    step = make_train_step(cfg, make_optimizer(lr=args.lr), dtype=dtype)
+    state, loss = step(first.state, pixels, tokens)
+    losses = [float(loss)]
+    resumed, next_resumed = step(second.state, pixels, tokens)
+    state, loss = step(state, pixels, tokens)
+    losses.append(float(loss))
+    with torch.no_grad():
+        pairs = zip(state.params.parameters(), resumed.params.parameters())
+        diff = max(float((p - q).abs().max()) for p, q in pairs)
+    out["resume"] = {
+        "loss": losses[0],
+        "loss_resumed": second.losses[0],
+        "next_loss": losses[1],
+        "next_loss_resumed": float(next_resumed),
+        "params_max_abs_diff_after_next": diff,
+        "rtol": [TRAIN_RESUME_RTOL, TRAIN_NEXT_RTOL],
+    }
+    ok = ok and abs(losses[0] - second.losses[0]) <= TRAIN_RESUME_RTOL * abs(losses[0])
+    ok = ok and abs(losses[1] - float(next_resumed)) <= TRAIN_NEXT_RTOL * abs(losses[1])
+    del first, second, resumed
+    pixels, tokens = random_pairs(cfg, batch, torch.Generator(device=device).manual_seed(12), device)
+    repeat = []
+    for _ in range(TRAIN_REPEAT):
+        state, loss = step(state, pixels, tokens)
+        repeat.append(float(loss))
+    out["repeat"] = {"losses": repeat, "drop": repeat[0] - repeat[-1], "min_drop": TRAIN_MIN_DROP}
+    ok = ok and out["repeat"]["drop"] >= TRAIN_MIN_DROP
+    return out, ok
+
+
+def long_train_check(device, config=SLICE_CONFIG, batch=LONG_BATCH, steps=LONG_STEPS) -> tuple:
+    """(c) ``config`` at full width and depth, bf16, ``steps`` steps at
+    ``batch``: the step ms, images/s and peak device memory; then every
+    gradient of one more batch finite and non-zero, each layer's q, k and
+    v projections included (K2 would leave them without a gradient)."""
+    import torch
+
+    from imatch_tpu_torch.models.clip.configs import get_config
+    from imatch_tpu_torch.parallel.train import init_train_state, loss_and_grads, make_train_step
+
+    cfg = get_config(config)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    state, tx = init_train_state(0, cfg, device=device)
+    dtype = torch.bfloat16 if cuda else torch.float32
+    step = make_train_step(cfg, tx, dtype=dtype)
+    g = torch.Generator(device=device).manual_seed(13)
+
+    def batch_of():
+        return random_pairs(cfg, batch, g, device)
+
+    times, losses = [], []
+    for _ in range(steps):
+        px, tok = batch_of()
+        _sync(device)
+        t0 = time.perf_counter()
+        state, loss = step(state, px, tok)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    ms = 1e3 * _p50(times[1:])
+    loss, grads = loss_and_grads(state.params, *batch_of(), dtype=dtype)
+    bad = [n for n, t in grads.items() if not bool(torch.isfinite(t).all()) or not bool(t.any())]
+    qkv_zero = []
+    for tower in ("vision", "text"):
+        d = getattr(cfg, tower).hidden_size
+        for i in range(getattr(cfg, tower).num_layers):
+            w = grads[f"{tower}.encoder.layers.{i}.qkv.weight"]
+            qkv_zero += [f"{tower}.{i}.{'qkv'[j]}" for j in range(3) if not bool(w[j * d : (j + 1) * d].any())]
+    out = {
+        "config": config,
+        "batch": batch,
+        "dtype": str(dtype).replace("torch.", ""),
+        "step_ms": [1e3 * t for t in times],
+        "median_step_ms_after_first": ms,
+        "images_per_s": batch / (ms / 1e3),
+        "losses": losses + [float(loss)],
+        "peak_memory_gb": (torch.cuda.max_memory_allocated() - base) / 1e9 if cuda else None,
+        "card_memory_gb": torch.cuda.get_device_properties(0).total_memory / 1e9 if cuda else None,
+        "grad_leaves": len(grads),
+        "grads_not_finite_or_zero": bad,
+        "qkv_grads_zero": qkv_zero,
+    }
+    ok = not bad and not qkv_zero and all(math.isfinite(x) for x in out["losses"])
+    del state, grads
+    return out, ok
+
+
+def k2_grad_check(device) -> tuple:
+    """(d) K2's wrapper raises on card inputs that require grad, launching
+    nothing; under no_grad the same inputs launch it (a check's launch,
+    not counted)."""
+    import torch
+
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
+
+    g = torch.Generator(device=device).manual_seed(0)
+    q, k, v = (torch.randn((1, 16, 257, 64), generator=g, device=device, dtype=torch.bfloat16) for _ in range(3))
+    k.requires_grad_(True)
+    before = flash_mha.launches
+    try:
+        flash_mha(q, k, v)
+        raised = False
+    except RuntimeError as e:
+        raised = "no backward" in str(e)
+    refused = flash_mha.launches == before
+    with torch.no_grad():
+        out = flash_mha(q, k, v)
+    out = {"raised_under_grad": raised, "launched_under_grad": not refused, "no_grad_launches": flash_mha.launches - before, "finite": bool(torch.isfinite(out).all())}
+    return out, raised and refused and out["no_grad_launches"] == 1 and out["finite"]
+
+
+def phase_train(device="cuda", config=TRAIN_CONFIG, batch=TRAIN_BATCH, long_config=SLICE_CONFIG, long_batch=LONG_BATCH) -> dict:
+    """Phase 8g: CLIP training on the card — (a) and (b) ``train_cli_check``
+    at vit-b32, (c) ``long_train_check`` at ``long_config``, (d)
+    ``k2_grad_check``. No K2 launch in (a)-(c): training takes mha_xla.
+    (A small config and batch on the CPU rehearse the same control flow.)"""
+    import shutil
+
+    import torch
+
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
+
+    t0 = time.perf_counter()
+    root = os.path.join("build", "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    before = flash_mha.launches
+    cli, cli_ok = train_cli_check(device, root, config, batch)
+    log("train cli: " + json.dumps(cli))
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    long, long_ok = long_train_check(device, long_config, long_batch)
+    log("train long: " + json.dumps(long))
+    k2_launches = flash_mha.launches - before
+    k2, k2_ok = k2_grad_check(device) if torch.device(device).type == "cuda" else ({}, True)
+    log("train k2: " + json.dumps({**k2, "launches_while_training": k2_launches}))
+    log(f"phase 8g: {time.perf_counter() - t0:.1f} s")
+    failed = [n for n, good in (("cli", cli_ok), ("long", long_ok), ("k2", k2_ok and k2_launches == 0)) if not good]
+    if failed:
+        raise AssertionError(f"phase 8g failed: {failed}")
+    return {"cli": cli, "long": long}
+
+
 def phase_reference() -> None:
     """vit-b32 (depth cut to 2 layers a tower) on the card, bf16 and fp32,
     against the same weights in fp32 on the CPU: per-row cosine of the
@@ -4876,6 +5147,7 @@ PHASES = {
     "ivf": step_clip_path(phase_ivf),
     "ops": step_clip_path(phase_ops),
     "md_int8": step_md_int8,
+    "train": lambda ctx: phase_train(),
     "reference": lambda ctx: phase_reference(),
     "scripts": step_scripts,
     "device": lambda ctx: phase_device(ctx["rows"]),
@@ -4901,9 +5173,11 @@ def main(only=None) -> int:
     ctx = {"rows": {}, "launches": {}}
     names = list(PHASES) if only is None else list(dict.fromkeys(("identify", "build", only)))
     for name in names:
+        t_phase = time.perf_counter()
         PHASES[name](ctx)
         gc.collect()  # each phase's apps and stores
         torch.cuda.empty_cache()
+        log(f"chip_smoke step {name}: {time.perf_counter() - t_phase:.1f} s")
     if only is not None:
         log(f"chip_smoke --phase {only}: passed in {time.perf_counter() - t0:.1f} s")
         return 0

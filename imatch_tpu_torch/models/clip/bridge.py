@@ -160,3 +160,58 @@ def params_to_numpy(model: CLIPModel) -> Dict:
         "projection": _np(tm.projection.weight).T,
     }
     return {"vision": vision, "text": text, "logit_scale": _np(model.logit_scale)}
+
+
+def _encoder_shapes(n: int, d: int, d_mlp: int) -> Dict:
+    return {
+        "ln1": {"scale": (n, d), "bias": (n, d)},
+        "attn": {
+            **{w: (n, d, d) for w in ("wq", "wk", "wv", "wo")},
+            **{b: (n, d) for b in ("bq", "bk", "bv", "bo")},
+        },
+        "ln2": {"scale": (n, d), "bias": (n, d)},
+        "mlp": {"w1": (n, d, d_mlp), "b1": (n, d_mlp), "w2": (n, d_mlp, d), "b2": (n, d)},
+    }
+
+
+def tree_shapes(cfg: CLIPConfig) -> Dict:
+    """The shape of every leaf of ``cfg``'s param tree, as JAX's
+    ``init_params`` lays it out."""
+    vc, tc, p = cfg.vision, cfg.text, cfg.projection_dim
+    d, t = vc.hidden_size, tc.hidden_size
+    return {
+        "vision": {
+            "patch_embedding": (vc.patch_size, vc.patch_size, 3, d),
+            "class_embedding": (d,),
+            "position_embedding": (vc.seq_len, d),
+            "pre_ln": {"scale": (d,), "bias": (d,)},
+            "layers": _encoder_shapes(vc.num_layers, d, vc.mlp_size),
+            "post_ln": {"scale": (d,), "bias": (d,)},
+            "projection": (d, p),
+        },
+        "text": {
+            "token_embedding": (tc.vocab_size, t),
+            "position_embedding": (tc.max_positions, t),
+            "layers": _encoder_shapes(tc.num_layers, t, tc.mlp_size),
+            "final_ln": {"scale": (t,), "bias": (t,)},
+            "projection": (t, p),
+        },
+        "logit_scale": (),
+    }
+
+
+def named_to_numpy(named: Dict[str, torch.Tensor], cfg: CLIPConfig) -> Dict:
+    """``params_to_numpy`` of tensors keyed by the module's parameter names
+    (``CLIPModel.named_parameters()``), such as an optimizer's moments: each
+    maps exactly as the parameter it belongs to."""
+    with torch.device("meta"):
+        shadow = CLIPModel(cfg)
+    shadow.load_state_dict(named, strict=True, assign=True)
+    return params_to_numpy(shadow)
+
+
+def numpy_to_named(tree: Dict, cfg: CLIPConfig, device="cpu") -> Dict[str, torch.Tensor]:
+    """The reverse of ``named_to_numpy``: fp32 tensors on ``device`` keyed
+    by the module's parameter names."""
+    model = params_from_numpy(tree, cfg, device=device, dtype=torch.float32)
+    return {n: p.detach() for n, p in model.named_parameters()}

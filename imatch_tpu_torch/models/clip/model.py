@@ -11,8 +11,10 @@ the HF ``transformers.CLIPModel`` forward:
   the FIRST eos token, projection;
 - L2-normalised fp32 embeddings.
 
-Weights live in the module in the compute dtype (bf16 on the card, fp32
-on the CPU) except the LayerNorms, which stay fp32. Attention goes through
+Served weights live in the module in the compute dtype (bf16 on the card,
+fp32 on the CPU) except the LayerNorms, which stay fp32. Training keeps
+every parameter an fp32 master and casts it where it is used
+(``clip_forward``), as JAX's ``_dense`` does. Attention goes through
 ``ops/attention.py``: K2 for CUDA tensors. The public functions keep the
 JAX package's layouts: ``encode_image`` takes NHWC pixels, ``encode_text``
 eos-padded int token ids. ``models/clip/bridge.py`` converts the JAX
@@ -21,11 +23,12 @@ param tree to these modules and back.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from imatch_tpu_torch.models.clip.configs import CLIPConfig, TextConfig, VisionConfig
 from imatch_tpu_torch.ops.attention import mha
@@ -64,13 +67,13 @@ class EncoderLayer(nn.Module):
         self.fc1 = nn.Linear(d, d_mlp)
         self.fc2 = nn.Linear(d_mlp, d)
 
-    def forward(self, h: torch.Tensor, causal: bool) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, causal: bool, attn_impl: str = "auto") -> torch.Tensor:
         b, s, d = h.shape
         nh = self.num_heads
         qkv = self.qkv(self.ln1(h)).view(b, s, 3, nh, d // nh)
         # (B, H, S, Dh) views of the fused projection; K2 reads them in place
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        o = mha(q, k, v, causal=causal)
+        o = mha(q, k, v, causal=causal, impl=attn_impl)
         h = h + self.out(o.transpose(1, 2).reshape(b, s, d))
         y = _act(self.fc1(self.ln2(h)), self.act)
         return h + self.fc2(y)
@@ -83,9 +86,9 @@ class Encoder(nn.Module):
             EncoderLayer(d, d_mlp, num_heads, eps, act) for _ in range(num_layers)
         )
 
-    def forward(self, x: torch.Tensor, causal: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, causal: bool, attn_impl: str = "auto") -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, causal)
+            x = layer(x, causal, attn_impl)
         return x
 
 
@@ -121,11 +124,11 @@ class VisionTower(nn.Module):
         """Post-LN of the CLS token and projection -> (B, proj) fp32."""
         return self.projection(self.post_ln(x[:, 0, :])).float()
 
-    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+    def forward(self, pixels: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
         """(B, H, W, 3) preprocessed pixels -> (B, proj) unnormalised fp32.
         ``self.encoder`` is the bf16 ``Encoder`` or, once
         ``quantize_vision_tower`` ran, the W8A8 one."""
-        return self.head(self.encoder(self.stem(pixels), causal=False))
+        return self.head(self.encoder(self.stem(pixels), causal=False, attn_impl=attn_impl))
 
 
 class TextTower(nn.Module):
@@ -141,14 +144,16 @@ class TextTower(nn.Module):
         self.final_ln = LayerNorm32(d, eps=cfg.layer_norm_eps)
         self.projection = nn.Linear(d, projection_dim, bias=False)
 
-    def forward(self, token_ids: torch.Tensor, eos_id: int) -> torch.Tensor:
+    def forward(self, token_ids: torch.Tensor, eos_id: int, attn_impl: str = "auto") -> torch.Tensor:
         """(B, S) eos-padded ids -> (B, proj) unnormalised fp32, pooled at
-        the first eos (HF's argmax pooling under eos padding)."""
+        the first eos (HF's argmax pooling under eos padding). The rows are
+        gathered from the token embedding and then cast to the compute
+        dtype (the projection's), as JAX does: in training the embedding
+        stays an fp32 master and its gradient is accumulated in fp32."""
         b, s = token_ids.shape
-        x = self.token_embedding(token_ids) + self.position_embedding[:s].to(
-            self.token_embedding.weight.dtype
-        )
-        x = self.final_ln(self.encoder(x, causal=True))
+        dt = self.projection.weight.dtype
+        x = self.token_embedding(token_ids).to(dt) + self.position_embedding[:s].to(dt)
+        x = self.final_ln(self.encoder(x, causal=True, attn_impl=attn_impl))
         eos_pos = (token_ids == eos_id).int().argmax(dim=-1)
         pooled = x[torch.arange(b, device=x.device), eos_pos]
         return self.projection(pooled).float()
@@ -247,3 +252,41 @@ def encode_text(
     ``eos_token_id`` overrides the config's (alternate vocabularies)."""
     eos = model.cfg.text.eos_token_id if eos_token_id is None else eos_token_id
     return _normalize(model.text(token_ids, eos))
+
+
+def _cast_params(model: CLIPModel, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Every parameter cast to ``dtype`` where it is used, differentiably
+    (JAX's ``w.astype(x.dtype)`` over fp32 masters), except those JAX reads
+    in fp32 whatever the compute dtype: the LayerNorms' scale and bias, the
+    logit scale, and the token embedding (gathered, then cast)."""
+    keep = {"logit_scale", "text.token_embedding.weight"}
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, LayerNorm32):
+            keep.update(f"{prefix}.{n}" for n, _ in mod.named_parameters(recurse=False))
+    return {n: p if n in keep else p.to(dtype) for n, p in model.named_parameters()}
+
+
+def clip_forward(
+    model: CLIPModel,
+    pixels: torch.Tensor,
+    token_ids: torch.Tensor,
+    *,
+    dtype: torch.dtype = torch.float32,
+    attn_impl: str = "xla",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Joint differentiable forward over ``model``'s (fp32 master)
+    parameters: L2-normalised image and text embeddings and
+    ``exp(logit_scale) * img @ txt.T``, an fp32 product (TF32 is off on
+    the card: ``device.resolve_device``). Counterpart of JAX's
+    ``clip_forward``; ``attn_impl="xla"`` (``mha_xla``) is the training
+    path, since K2 has no backward."""
+    params = _cast_params(model, dtype)
+
+    def tower(prefix):
+        return {n[len(prefix) :]: t for n, t in params.items() if n.startswith(prefix)}
+
+    eos = model.cfg.text.eos_token_id
+    kw = {"attn_impl": attn_impl}
+    img = _normalize(functional_call(model.vision, tower("vision."), (pixels,), kw))
+    txt = _normalize(functional_call(model.text, tower("text."), (token_ids, eos), kw))
+    return img, txt, params["logit_scale"].exp() * (img @ txt.T)

@@ -77,13 +77,13 @@ class EncoderLayerW8A8(nn.Module):
             dtype,
         )
 
-    def forward(self, h: torch.Tensor, causal: bool = False) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, causal: bool = False, attn_impl: str = "auto") -> torch.Tensor:
         b, s, d = h.shape
         nh = self.num_heads
         xi, asc = ln_quant_rows_int8(h, self.ln1.weight, self.ln1.bias, self.ln1.eps)
         qkv = self._dense(xi, asc, "qkv", h.dtype).view(b, s, 3, nh, d // nh)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        o = mha(q, k, v, causal=causal).transpose(1, 2).reshape(b, s, d)
+        o = mha(q, k, v, causal=causal, impl=attn_impl).transpose(1, 2).reshape(b, s, d)
         oi, osc = quant_rows_int8(o)
         h = h + self._dense(oi, osc, "out", h.dtype)
         xi, asc = ln_quant_rows_int8(h, self.ln2.weight, self.ln2.bias, self.ln2.eps)
@@ -99,9 +99,9 @@ class EncoderW8A8(nn.Module):
         super().__init__()
         self.layers = nn.ModuleList(EncoderLayerW8A8(layer) for layer in encoder.layers)
 
-    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, causal: bool = False, attn_impl: str = "auto") -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, causal)
+            x = layer(x, causal, attn_impl)
         return x
 
 

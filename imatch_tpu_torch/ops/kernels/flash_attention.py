@@ -20,6 +20,10 @@ device, dtype, shape and layout and raises on anything the kernel does
 not take (head dims that are not a multiple of 8 in [8, 128], a head dim
 that is not contiguous; for bf16, rows that do not start 16-byte aligned,
 since the kernel copies them 16 bytes at a time); it never falls back.
+The kernel has no backward (nor has the Pallas kernel a VJP): on a CUDA
+input that requires grad, with grad mode on, the wrapper raises, since
+its output would carry no ``grad_fn``. Training takes ``mha_xla``
+(``ops/attention.py``).
 ``flash_mha.launches`` counts kernel launches.
 """
 
@@ -131,6 +135,13 @@ def flash_mha(
         return flash_mha_plain(q, k, v, causal=causal, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        # the output is written through a raw pointer and has no grad_fn:
+        # a backward pass would silently drop the attention's gradient
+        raise RuntimeError(
+            "the CUDA flash-attention kernel (K2) has no backward: train "
+            "through mha(..., impl='xla'), or run it under torch.no_grad()"
+        )
     b, h, s, dh = q.shape
     kv_len = s if kv_len is None else kv_len
     _check(q, k, v, kv_len)

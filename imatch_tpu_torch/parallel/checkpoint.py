@@ -1,0 +1,155 @@
+"""Flat-file checkpoints of the training state, in the JAX package's format.
+
+Counterpart of ``imatch_tpu/parallel/checkpoint.py``: one
+``step_<8 digits>.npz`` per step, written to a temp file and then
+``os.replace``d, ``latest_step`` for resume. The keys are JAX's, as
+``jax.tree_util.tree_flatten_with_path`` names the leaves of its
+``TrainState``, so a checkpoint either package writes restores in the
+other:
+
+- ``step`` (int32);
+- ``params/<vision|text>/...``: the JAX param tree (stacked ``(L, ...)``
+  layers, separate ``wq/wk/wv``, the HWIO patch kernel, ``(in, out)``
+  dense weights), mapped from the modules by ``models/clip/bridge.py``;
+- ``opt_state/1/0/count`` (int32), ``opt_state/1/0/mu/...`` and
+  ``opt_state/1/0/nu/...``: optax's ``ScaleByAdamState`` inside
+  ``chain(clip_by_global_norm, adamw)``, each moment mapped exactly as the
+  parameter it belongs to.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import tempfile
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from imatch_tpu_torch.models.clip.bridge import (
+    named_to_numpy,
+    numpy_to_named,
+    params_to_numpy,
+    tree_shapes,
+)
+from imatch_tpu_torch.parallel.train import AdamState, TrainState, check_mesh
+
+ADAM = "opt_state/1/0"  # optax's chain: index 1 is adamw, its 0 scale_by_adam
+
+
+def _flatten(tree: Dict, prefix: str) -> Dict:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def _unflatten(flat: Dict, prefix: str) -> Dict:
+    tree: Dict = {}
+    for key, v in flat.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        *path, leaf = key[len(prefix) + 1 :].split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def _expected_shapes(cfg) -> Dict:
+    shapes = tree_shapes(cfg)
+    return {
+        "step": (),
+        **_flatten(shapes, "params"),
+        f"{ADAM}/count": (),
+        **_flatten(shapes, f"{ADAM}/mu"),
+        **_flatten(shapes, f"{ADAM}/nu"),
+    }
+
+
+def _state_arrays(state: TrainState) -> Dict[str, np.ndarray]:
+    """Every leaf of ``state`` as a numpy array under its JAX key."""
+    cfg = state.params.cfg
+    opt = state.opt_state
+    return {
+        "step": np.asarray(state.step, dtype=np.int32),
+        **_flatten(params_to_numpy(state.params), "params"),
+        f"{ADAM}/count": np.asarray(int(opt.count), dtype=np.int32),
+        **_flatten(named_to_numpy(opt.mu, cfg), f"{ADAM}/mu"),
+        **_flatten(named_to_numpy(opt.nu, cfg), f"{ADAM}/nu"),
+    }
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    arrays = _state_arrays(state)
+    path = os.path.join(ckpt_dir, f"step_{state.step:08d}.npz")
+    fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
+    with os.fdopen(fd, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+    return path
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [
+        int(m.group(1))
+        for f in os.listdir(ckpt_dir)
+        if (m := re.match(r"step_(\d+)\.npz$", f))
+    ]
+    return max(steps) if steps else None
+
+
+@torch.no_grad()
+def restore_checkpoint(
+    ckpt_dir: str,
+    template: TrainState,
+    step: Optional[int] = None,
+    mesh: Optional[Sequence] = None,
+) -> TrainState:
+    """The state saved at ``step`` (default the latest), written into
+    ``template``'s tensors in place (its config decides the expected
+    shapes; its device holds the result). A missing leaf raises
+    ``KeyError``, a leaf of another shape ``ValueError`` (a checkpoint of
+    another config); only a one-element scalar is reshaped."""
+    check_mesh(mesh)
+    step = latest_step(ckpt_dir) if step is None else step
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
+    cfg = template.params.cfg
+    data = {}
+    with np.load(path) as z:
+        for key, want in _expected_shapes(cfg).items():
+            if key not in z.files:
+                raise KeyError(f"checkpoint missing leaf {key}")
+            arr = z[key]
+            if arr.shape != want:
+                if arr.size == 1 and int(np.prod(want, dtype=np.int64)) == 1:
+                    arr = arr.reshape(want)
+                else:
+                    raise ValueError(
+                        f"checkpoint leaf {key} has shape {arr.shape}, "
+                        f"template expects {want} — wrong config?"
+                    )
+            data[key] = arr
+    params = template.params
+    opt = template.opt_state
+    for tree, named in (
+        ("params", dict(params.named_parameters())),
+        (f"{ADAM}/mu", opt.mu),
+        (f"{ADAM}/nu", opt.nu),
+    ):
+        loaded = numpy_to_named(_unflatten(data, tree), cfg)
+        for n, t in named.items():
+            t.copy_(loaded[n])
+    opt.count.fill_(int(data[f"{ADAM}/count"]))
+    return TrainState(int(data["step"]), params, AdamState(opt.count, opt.mu, opt.nu))

@@ -86,6 +86,9 @@ def test_every_module_imports_without_jax_or_imatch_tpu():
         "parallel.dist_ivf",
         "utils.profiles",
         "scripts.score_forms",
+        "parallel.train",
+        "parallel.checkpoint",
+        "scripts.train_clip",
     ):
         assert f"imatch_tpu_torch.{name}" in names, name
 

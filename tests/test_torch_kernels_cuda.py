@@ -868,3 +868,53 @@ def test_ivf_append_patch_equals_repack_on_card(cuda):
     assert s.stats()["patched_mutations"] == 3
     got = [r[0] for r in s.query(rows[3000:3004], n_results=1)["ids"]]
     assert got[2:] == ["b2", "b3"] and not {"b0", "b1"} & set(got)
+
+
+def test_flash_attention_refuses_grad(cuda):
+    """K2 has no backward: its output would carry no grad_fn and a backward
+    pass would drop the attention's gradient, so the wrapper raises on a
+    CUDA input that requires grad (any of q, k, v) and launches nothing."""
+    before = flash_mha.launches
+    for needs in range(3):
+        qkv = _qkv((2, 4, 50, 64), torch.bfloat16, cuda)
+        qkv[needs].requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            flash_mha(*qkv)
+    q, k, v = qkv
+    assert flash_mha.launches == before
+    with torch.no_grad():
+        out = flash_mha(q, k, v)  # serving: no grad mode, the kernel runs
+    assert flash_mha.launches == before + 1 and out.grad_fn is None
+
+
+def test_train_step_on_card_takes_mha_xla(cuda):
+    """A bf16 train step of the tiny config on the card: finite loss,
+    finite gradients, every layer's q, k and v projections non-zero, and
+    no K2 launch; mha_xla's bf16 output on the card within 2 bf16 ulps of
+    the CPU's on the same inputs."""
+    from imatch_tpu_torch.ops.attention import mha_xla
+    from imatch_tpu_torch.parallel.train import init_train_state, loss_and_grads, make_train_step
+
+    q, k, v = _qkv((2, 12, 77, 64), torch.bfloat16, cuda)
+    for causal in (False, True):
+        got = mha_xla(q, k, v, causal=causal).float().cpu()
+        want = mha_xla(q.cpu(), k.cpu(), v.cpu(), causal=causal).float()
+        torch.testing.assert_close(got, want, rtol=BF16_TOL, atol=BF16_TOL)
+
+    g = torch.Generator().manual_seed(0)
+    px = torch.randn((4, 32, 32, 3), generator=g)
+    tok = torch.randint(0, TINY.text.eos_token_id, (4, TINY.text.max_positions), generator=g)
+    tok[:, 9:] = TINY.text.eos_token_id
+    st, tx = init_train_state(0, TINY, device=cuda)
+    before = flash_mha.launches
+    loss, grads = loss_and_grads(st.params, px.to(cuda), tok.to(cuda), dtype=torch.bfloat16)
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(g).all() for g in grads.values())
+    for tower in (st.params.vision, st.params.text):
+        d = tower.encoder.layers[0].out.weight.shape[0]
+        for layer in tower.encoder.layers:
+            name = next(n for n, p in st.params.named_parameters() if p is layer.qkv.weight)
+            assert all(grads[name][j * d : (j + 1) * d].abs().max() > 0 for j in range(3))
+    st, loss = make_train_step(TINY, tx, dtype=torch.bfloat16)(st, px, tok)
+    assert torch.isfinite(loss) and st.step == 1
+    assert flash_mha.launches == before
