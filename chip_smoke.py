@@ -186,6 +186,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    non-zero, each layer's q, k and v projections included. (d) K2's
    wrapper raises on card inputs that require grad and launches nothing;
    no K2 launch in (a)-(c): training takes ``mha_xla``.
+8h. The thirteenth slice, the model axis (the step `parallel`), after
+   8g, on logical shards of cuda:0 (the machine holds one card: no run
+   over several real cards takes place). (a) K2 at a tensor-parallel
+   shard's head count, bf16, against its plain version: (2, 8, 729, 72),
+   (4, 8, 257, 64), causal (4, 6, 248, 64). (b) LongCLIP-L/14-248 at full
+   width and depth, one fp32 step (TF32 off) at B = 8 on a (2, 2) grid
+   against one device from the same seed: the loss within
+   ``PARALLEL_LOSS_RTOL``, the largest parameter difference printed. (c)
+   3 bf16 steps at B = 32 on each: step ms, images/s, peak memory. (d)
+   moondream2 bf16 over 2 model shards against one device: the prefill
+   logits' cosine a row and argmax; K2's launches in the sharded encode
+   counted (each at (2, 8, 729, 72)) and the first one's inputs held
+   against ``flash_mha_plain``. (e) ``ClipEmbedder(mesh=["cuda"] * 2)``
+   at LongCLIP, bf16 and W8A8, against one device on 24 frames: cosine,
+   top-10 ids in a store equal for every frame, K2 (and K3/K4) launches
+   a data shard at its 16 frames, the first launch of each (K3 at each
+   width) captured and held against its plain version. (f) One bf16 step
+   at B = 32 traced on one device and on (2, 2): device busy ms,
+   operations, idle share against (c)'s median step.
 9. A cut-depth vit-b32 tower on the card against the same weights on the
    CPU.
 10. The two experiment entry points, python -m imatch_tpu_torch.scripts.
@@ -201,7 +220,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    process of its own (``chip_smoke.py --child device``) on inputs of the
    same shapes, after every CUDA-event time: a profiler session slows the
    host's later launches, and a long process's late traces drop events. A
-   reading the traces lost is null: not measured.
+   reading the traces lost is null: not measured. Phase 8h's split-head
+   K2 cases are traced too.
 12. POST /api/profile/start and /stop on a small app (vit-b32): 409s on
    misuse, and a trace file that holds K1's and K2's kernels. It runs in a
    process of its own (``chip_smoke.py --child profile``), whose first
@@ -436,6 +456,10 @@ def trace_specs() -> list:
         {"key": "K2", "shape": list(shape), "causal": causal, "kv_len": shape[2] if kv_len is None else kv_len, "dtype": dname}
         for shape, causal, kv_len in K2_CASES
         for dname in ("bfloat16", "float32")
+    ]
+    specs += [
+        {"key": "K2", "shape": list(shape), "causal": causal, "kv_len": shape[2], "dtype": "bfloat16"}
+        for shape, causal in K2_TP_CASES
     ]
     specs += [{"key": "K1", "q": q, "dtype": "bfloat16", "tile_n": 512} for q in (1, 16)]
     specs.append({"key": "K1_int8", "q": 1})
@@ -4677,6 +4701,369 @@ def phase_train(device="cuda", config=TRAIN_CONFIG, batch=TRAIN_BATCH, long_conf
     return {"cli": cli, "long": long}
 
 
+# -- phase 8h: the model axis -------------------------------------------------
+
+PARALLEL_GRID = (2, 2)  # (data, model): logical shards of cuda:0
+PARALLEL_EQ_BATCH = 8  # the fp32 equality step's batch
+PARALLEL_LOSS_RTOL = 2e-5  # the (2, 2) loss against one device's (tests/test_parallel.py's bar)
+PARALLEL_BATCH = 32  # the bf16 timing's batch, phase 8g's one-device LongCLIP step's
+PARALLEL_STEPS = 3
+PARALLEL_MD_BATCH = 2
+PARALLEL_MD_PROMPT = 12  # prompt ids after BOS
+PARALLEL_MD_MIN_COSINE = 0.999  # per row, the mp = 2 prefill logits against one device's
+PARALLEL_EMBED_IMAGES = 24
+PARALLEL_EMBED_MIN_COSINE = 0.999  # per row, DP = 2 embeddings against one device's
+PARALLEL_EMBED_ROWS = 4096  # random unit rows of the store beside the 24 images
+PARALLEL_EMBED_SHARD_ROWS = 16  # the 24 frames pad to 32 (pow2_bucket): 16 a data shard
+# K2 at a tensor-parallel shard's head count: the Moondream vision tower
+# and the LongCLIP towers at mp = 2
+K2_TP_CASES = [((2, 8, 729, 72), False), ((4, 8, 257, 64), False), ((4, 6, 248, 64), True)]
+
+
+def parallel_train_check(device, config=SLICE_CONFIG) -> tuple:
+    """(b) ``config`` at full width and depth, one fp32 step (TF32 off) at
+    PARALLEL_EQ_BATCH on one device and on the PARALLEL_GRID grid from the
+    same seed: the losses within PARALLEL_LOSS_RTOL, the largest parameter
+    difference after the step. (c) Then PARALLEL_STEPS bf16 steps at
+    PARALLEL_BATCH on each: the median step ms after the first, images/s,
+    peak device memory."""
+    import torch
+
+    from imatch_tpu_torch.models.clip.configs import get_config
+    from imatch_tpu_torch.parallel.mesh import make_mesh
+    from imatch_tpu_torch.parallel.sharding import gather_named
+    from imatch_tpu_torch.parallel.train import init_train_state, make_train_step
+
+    cfg = get_config(config)
+    dp, mp = PARALLEL_GRID
+    grid = make_mesh(mp, [device] * (dp * mp))
+    g = torch.Generator(device=device).manual_seed(21)
+    eq_batch = random_pairs(cfg, PARALLEL_EQ_BATCH, g, device)
+    batches = [random_pairs(cfg, PARALLEL_BATCH, g, device) for _ in range(PARALLEL_STEPS)]
+    out, snap = {}, None
+    for name, mesh in (("one_device", None), ("grid", grid)):
+        _sync(device)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        state, tx = init_train_state(0, cfg, mesh=mesh, device=device)
+        state, loss = make_train_step(cfg, tx, mesh=mesh)(state, *eq_batch)  # fp32
+        row = {"fp32_loss": float(loss)}
+        named = dict(state.params.named_parameters())
+        if mesh is None:
+            snap = {n: p.detach().clone() for n, p in named.items()}
+        else:
+            with torch.no_grad():
+                full = gather_named(named, state.params, device=device)
+                row["params_max_abs_diff"] = max(float((full[n] - snap[n]).abs().max()) for n in snap)
+            del full
+            snap = None
+        step = make_train_step(cfg, tx, mesh=mesh, dtype=torch.bfloat16)
+        times = []
+        for px, tok in batches:
+            _sync(device)
+            t0 = time.perf_counter()
+            state, loss = step(state, px, tok)
+            row.setdefault("bf16_losses", []).append(float(loss))
+            times.append(time.perf_counter() - t0)
+        ms = 1e3 * _p50(times[1:])
+        row.update(
+            step_ms=[1e3 * t for t in times],
+            median_step_ms_after_first=ms,
+            images_per_s=PARALLEL_BATCH / (ms / 1e3),
+            peak_memory_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+            model_shards=1 + len(state.params.peers),
+        )
+        out[name] = row
+        del state, named
+        gc.collect()
+        torch.cuda.empty_cache()
+    one, two = out["one_device"]["fp32_loss"], out["grid"]["fp32_loss"]
+    out.update(config=config, grid_shape=list(PARALLEL_GRID), rtol=PARALLEL_LOSS_RTOL, loss_rel_diff=abs(two - one) / abs(one))
+    losses = out["one_device"]["bf16_losses"] + out["grid"]["bf16_losses"] + [one, two]
+    ok = out["loss_rel_diff"] <= PARALLEL_LOSS_RTOL and all(math.isfinite(x) for x in losses)
+    return out, ok
+
+
+def k2_held(q, k, v, causal=False) -> tuple:
+    """K2 on inputs captured from a path, against ``flash_mha_plain`` in
+    fp32 on the same inputs: (largest error, within the bf16 bar)."""
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha, flash_mha_plain
+
+    got = flash_mha(q, k, v, causal=causal)
+    ref = flash_mha_plain(q.float(), k.float(), v.float(), causal=causal)
+    err = (got.float() - ref).abs()
+    return float(err.max()), bool((err <= BF16_ATOL + BF16_RTOL * ref.abs()).all())
+
+
+def k34_held(kernel, args) -> dict:
+    """K3 (``args`` = (x,)) or K4 (x, gamma, beta, eps) on inputs captured
+    from a path, against its plain version on the same inputs, with
+    ``k34_case``'s bars."""
+    import torch
+
+    from imatch_tpu_torch.ops.kernels import quantize
+
+    if kernel == "K3":
+        run, plain, frac_bar = quantize.quant_rows, quantize.quant_rows_plain, 1e-3
+    else:
+        run, plain, frac_bar = quantize.ln_quant_rows, quantize.ln_quant_rows_plain, 2e-3
+    q, s = run(*args)
+    torch.cuda.synchronize()
+    qr, sr = plain(*args)
+    diff = (q.int() - qr.int()).abs()
+    row = {
+        "kernel": kernel,
+        "shape": list(args[0].shape),
+        "max_abs_err": int(diff.max()),
+        "codes_differing": float((diff != 0).float().mean()),
+        "scale_max_rel_err": float(((s - sr).abs() / sr.abs()).max()),
+    }
+    row["ok"] = row["max_abs_err"] <= 1 and row["codes_differing"] < frac_bar and row["scale_max_rel_err"] <= 1e-6
+    return row
+
+
+def parallel_md_check(device, config=MD_CONFIG) -> tuple:
+    """(d) ``config`` bf16 (seeded weights) over 2 logical model shards
+    against one device: the vision tower, projector and prefill at
+    PARALLEL_MD_BATCH; the last logits' per-row cosine and argmax. K2's
+    launches in the sharded encode are counted (each at (B, 16 / 2, 729,
+    72)); the first launch's inputs, captured, are held against
+    ``flash_mha_plain`` after the count."""
+    import torch
+
+    from imatch_tpu_torch.models.moondream.configs import get_md_config
+    from imatch_tpu_torch.models.moondream.generate import prefill
+    from imatch_tpu_torch.models.moondream.model import encode_image_features, init_random
+    from imatch_tpu_torch.ops import attention
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
+    from imatch_tpu_torch.parallel.sharding import shard_model
+
+    cfg = get_md_config(config)
+    one = init_random(cfg, seed=0, device=device, dtype=torch.bfloat16)
+    tp = shard_model(one, [device, device])
+    g = torch.Generator(device=device).manual_seed(31)
+    size = cfg.vision.image_size
+    px = torch.randn((PARALLEL_MD_BATCH, size, size, 3), generator=g, device=device)
+    tok = torch.randint(0, cfg.text.vocab_size, (PARALLEL_MD_BATCH, 1 + PARALLEL_MD_PROMPT), generator=g, device=device)
+    tok[:, 0] = cfg.text.bos_token_id
+    shapes, captured = set(), []
+    served = attention.flash_mha
+
+    def watch(q, k, v, **kw):
+        shapes.add(tuple(q.shape))
+        if not captured:
+            captured.append((q.clone(), k.clone(), v.clone()))
+        return served(q, k, v, **kw)
+
+    def run(model):
+        return prefill(model, encode_image_features(model, px), tok)[0]
+
+    attention.flash_mha = watch
+    try:
+        flash_mha.launches = 0
+        got = run(tp)
+        _sync(device)
+        launches = flash_mha.launches
+    finally:
+        attention.flash_mha = served
+    want = run(one)
+    k2_err, k2_ok = k2_held(*captured[0])
+    _, tp_ms = _timed(lambda: run(tp), device, iters=2)
+    _, one_ms = _timed(lambda: run(one), device, iters=2)
+    cos = torch.nn.functional.cosine_similarity(got.float(), want.float(), dim=-1)
+    out = {
+        "config": config,
+        "model_shards": 2,
+        "batch": PARALLEL_MD_BATCH,
+        "logits_cosine": [float(c) for c in cos],
+        "argmax_equal": bool(torch.equal(got.argmax(-1), want.argmax(-1))),
+        "k2_launches": launches,
+        "k2_shapes": sorted(map(list, shapes)),
+        "k2_max_abs_err_on_path_inputs": k2_err,
+        "encode_prefill_ms": {"mp2": tp_ms, "one_device": one_ms},
+    }
+    ok = (
+        bool(torch.isfinite(got).all())
+        and float(cos.min()) >= PARALLEL_MD_MIN_COSINE
+        and k2_ok
+        and launches == 2 * cfg.vision.num_layers
+        and shapes == {(PARALLEL_MD_BATCH, cfg.vision.num_heads // 2, cfg.vision.num_patches, cfg.vision.head_dim)}
+    )
+    del one, tp
+    return out, ok
+
+
+def parallel_embed_check(device, config=SLICE_CONFIG) -> tuple:
+    """(e) ``ClipEmbedder(mesh=[device] * 2)`` against one device at
+    ``config``, bf16 and W8A8, on PARALLEL_EMBED_IMAGES photo frames: the
+    per-row cosine, and the top-10 ids of each frame's query in a store of
+    the one-device embeddings and PARALLEL_EMBED_ROWS random unit rows,
+    equal for every frame. K2 (and K3/K4 for W8A8) launch on each data
+    shard at PARALLEL_EMBED_SHARD_ROWS frames; the first launch of each
+    kernel (and of K3 at each width) is captured and held against its
+    plain version after the count."""
+    import numpy as np
+    import torch
+
+    from imatch_tpu_torch.index.store import VectorStore
+    from imatch_tpu_torch.models.clip import quant as w8a8
+    from imatch_tpu_torch.ops import attention
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
+    from imatch_tpu_torch.ops.kernels.quantize import ln_quant_rows, quant_rows
+    from imatch_tpu_torch.pipeline.embedder import ClipEmbedder
+
+    frames = [photo_frame(600 + i, 240, 320) for i in range(PARALLEL_EMBED_IMAGES)]
+    out, ok, launches = {}, True, {"K2": 0, "K3": 0, "K4": 0}
+    served = {"K2": attention.flash_mha, "K3": w8a8.quant_rows_int8, "K4": w8a8.ln_quant_rows_int8}
+    for quant in ("", "int8"):
+        one = ClipEmbedder(config, device=device, quant=quant)
+        dp = ClipEmbedder(config, mesh=[device, device], quant=quant)
+        shapes, captured = {k: set() for k in served}, {}
+
+        def watcher(kernel):
+            def watch(*args, **kw):
+                x = args[0]
+                shapes[kernel].add(tuple(x.shape))
+                key = (kernel, x.shape[-1])
+                if key not in captured:
+                    captured[key] = ([a.clone() if torch.is_tensor(a) else a for a in args], kw)
+                return served[kernel](*args, **kw)
+
+            return watch
+
+        attention.flash_mha = watcher("K2")
+        w8a8.quant_rows_int8, w8a8.ln_quant_rows_int8 = watcher("K3"), watcher("K4")
+        try:
+            flash_mha.launches = quant_rows.launches = ln_quant_rows.launches = 0
+            got = dp.embed_images(frames)
+            _sync(device)
+            counts = {"K2": flash_mha.launches, "K3": quant_rows.launches, "K4": ln_quant_rows.launches}
+        finally:
+            attention.flash_mha = served["K2"]
+            w8a8.quant_rows_int8, w8a8.ln_quant_rows_int8 = served["K3"], served["K4"]
+        held = []
+        for (kernel, width), (args, kw) in sorted(captured.items()):
+            if kernel == "K2":
+                err, good = k2_held(*args, **kw)
+                held.append({"kernel": "K2", "shape": list(args[0].shape), "max_abs_err": err, "ok": good})
+            else:
+                held.append(k34_held(kernel, args))
+        want = one.embed_images(frames)
+        cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+        rng = np.random.default_rng(5)
+        noise = rng.standard_normal((PARALLEL_EMBED_ROWS, want.shape[1])).astype(np.float32)
+        noise /= np.linalg.norm(noise, axis=1, keepdims=True)
+        store = VectorStore(dim=want.shape[1], device=device, score_dtype="float32")
+        store.add(ids=[f"r{i}" for i in range(len(noise) + len(want))], embeddings=np.concatenate([want, noise]))
+        ids = [store.query(e, n_results=10)["ids"] for e in (got, want)]
+        same = [a == b for a, b in zip(*ids)]
+        top1 = all(r[0] == f"r{i}" for i, r in enumerate(ids[0]))
+        name = quant or "bf16"
+        vc = dp.cfg.vision
+        layers = vc.num_layers
+        rows = PARALLEL_EMBED_SHARD_ROWS
+        want_shapes = {"K2": {(rows, vc.num_heads, vc.seq_len, vc.head_dim)}}
+        want_counts = {"K2": 2 * layers}  # one tower call a data shard
+        if quant:  # ln1, ln2 (K4); the attention output, gelu(fc1) (K3): per layer
+            want_shapes.update(K3={(rows, vc.seq_len, vc.hidden_size), (rows, vc.seq_len, vc.mlp_size)}, K4={(rows, vc.seq_len, vc.hidden_size)})
+            want_counts.update(K3=2 * 2 * layers, K4=2 * 2 * layers)
+        row_ok = (
+            float(cos.min()) >= PARALLEL_EMBED_MIN_COSINE
+            and all(same)
+            and top1
+            and all(counts[k] == n for k, n in want_counts.items())
+            and all(shapes[k] == v for k, v in want_shapes.items())
+            and len(held) == sum(len(v) for v in want_shapes.values())
+            and all(h["ok"] for h in held)
+        )
+        out[name] = {
+            "min_cosine": float(cos.min()),
+            "mean_cosine": float(cos.mean()),
+            "top10_ids_equal": sum(same),
+            "top1_is_self": top1,
+            "launches": counts,
+            "launch_shapes": {k: sorted(map(list, v)) for k, v in shapes.items() if v},
+            "held_on_path_inputs": held,
+            "ok": row_ok,
+        }
+        ok = ok and row_ok
+        for k in launches:
+            launches[k] += counts[k]
+        del one, dp, store, captured
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["images"] = PARALLEL_EMBED_IMAGES
+    return out, ok, launches
+
+
+def parallel_trace_check(device, train, config=SLICE_CONFIG) -> dict:
+    """(f) Where a bf16 step's time goes on one device and on the
+    PARALLEL_GRID grid: one step at PARALLEL_BATCH traced
+    (``device_busy``), its device busy ms, device operations, the idle
+    share against (c)'s median step ms and the five kernels that take the
+    most time. Last in the phase: a profiler session slows the host's
+    later launches."""
+    import torch
+
+    from imatch_tpu_torch.models.clip.configs import get_config
+    from imatch_tpu_torch.parallel.mesh import make_mesh
+    from imatch_tpu_torch.parallel.train import init_train_state, make_train_step
+
+    cfg = get_config(config)
+    dp, mp = PARALLEL_GRID
+    px, tok = random_pairs(cfg, PARALLEL_BATCH, torch.Generator(device=device).manual_seed(22), device)
+    out = {}
+    for name, mesh in (("one_device", None), ("grid", make_mesh(mp, [device] * (dp * mp)))):
+        state, tx = init_train_state(0, cfg, mesh=mesh, device=device)
+        holder = [state, make_train_step(cfg, tx, mesh=mesh, dtype=torch.bfloat16)]
+        del state
+
+        def one_step():
+            holder[0], _ = holder[1](holder[0], px, tok)
+
+        out[name] = device_busy(one_step, train[name]["median_step_ms_after_first"], iters=1, top=5)
+        del holder
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel(device="cuda") -> dict:
+    """Phase 8h: the model axis on logical shards of the card. (a) K2 at
+    the split-head shapes (K2_TP_CASES) against its plain version; (b, c)
+    ``parallel_train_check``; (d) ``parallel_md_check``; (e)
+    ``parallel_embed_check``; (f) ``parallel_trace_check``. No run over
+    several real cards takes place: the machine holds one."""
+    import torch
+
+    t0 = time.perf_counter()
+    k2_rows = [k2_case(shape, causal, torch.bfloat16) for shape, causal in K2_TP_CASES]
+    train, train_ok = parallel_train_check(device)
+    log("parallel train: " + json.dumps(train))
+    md, md_ok = parallel_md_check(device)
+    log("parallel moondream: " + json.dumps(md))
+    gc.collect()
+    torch.cuda.empty_cache()
+    embed, embed_ok, launches = parallel_embed_check(device)
+    log("parallel embedder: " + json.dumps(embed))
+    log("parallel trace: " + json.dumps(parallel_trace_check(device, train)))
+    log(f"phase 8h: {time.perf_counter() - t0:.1f} s; {torch.cuda.device_count()} card(s) visible, "
+        "so no run over several real cards took place")
+    failed = [
+        n
+        for n, good in (
+            ("k2", all(r["ok"] for r in k2_rows)),
+            ("train", train_ok),
+            ("moondream", md_ok),
+            ("embedder", embed_ok),
+        )
+        if not good
+    ]
+    if failed:
+        raise AssertionError(f"phase 8h failed: {failed}")
+    return {"k2_rows": k2_rows, "launches": {**launches, "K2_tp": md["k2_launches"]}}
+
+
 def phase_reference() -> None:
     """vit-b32 (depth cut to 2 layers a tower) on the card, bf16 and fp32,
     against the same weights in fp32 on the CPU: per-row cosine of the
@@ -4908,7 +5295,10 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
     with the launches of phase 8d's W8A8 caption and yes/no chunk. Phase
     8c's cutout requests add their K1 and K2 launches to the CLIP
     entries', phase 8e's sharded engine calls their K1 launches (P a call)
-    and its HTTP requests their K2 launches."""
+    and its HTTP requests their K2 launches. Phase 8h's sharded Moondream
+    encode gives the tensor-parallel K2 entry (a shard's (2, 8, 729, 72))
+    its launches, and its data-parallel embedder adds its K2, K3 and K4
+    launches to those entries."""
 
     def pick(table, **want):
         return next(r for r in table if all(r[k] == v for k, v in want.items()))
@@ -4918,6 +5308,7 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
     k1i8 = pick(k1i8_rows, q=1)
     k2 = pick(k2_rows, shape=[1, 16, 257, 64], dtype="bfloat16")
     k2_md = pick(k2_rows, shape=[1, 16, 729, 72], dtype="bfloat16")
+    k2_tp = pick(k2_rows, shape=list(K2_TP_CASES[0][0]), dtype="bfloat16")
     k5 = pick(k5_rows, tile_n=2048)
     k6 = pick(k6_rows, dp=640, tile_n=2048)
     entries = []
@@ -4965,6 +5356,15 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
             "K2_md",
             "(1, 16, 729, 72) bf16, non-causal; launches: the Moondream slice's requests "
             "(27 a vision encode)",
+        ),
+        (
+            "K2 flash_attention, tensor-parallel shard",
+            k2_tp,
+            "imatch_tpu_torch/csrc/flash_attention.cu",
+            "imatch_tpu/ops/pallas/flash_attention.py:26",
+            "K2_tp",
+            f"{tuple(K2_TP_CASES[0][0])} bf16, non-causal: a model shard of the Moondream vision "
+            "tower at mp = 2; launches: phase 8h's sharded encode (one a shard a layer)",
         ),
         (
             "K3 quant_rows",
@@ -5035,7 +5435,7 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
         # where it launches more slowly than the card runs (K2 at B = 1)
         entry["device_ms"] = row["device_ms"]
         entry["device_pct_of_bound"] = row["device_pct_of_bound"]
-        if key in ("K2", "K2_md"):
+        if key in ("K2", "K2_md", "K2_tp"):
             entry["library_device_ms"] = row["library_device_ms"]
         if key in ("K3", "K4", "K3_md", "K4_md"):
             entry["library_note"] = "no single PyTorch call computes a per-row int8 quantize"
@@ -5125,6 +5525,13 @@ def step_md_int8(ctx) -> None:
     _add_launches(ctx, **phase_md_int8()["launches"])
 
 
+def step_parallel(ctx) -> None:
+    out = phase_parallel()
+    # the split-head rows join phase 3's table: phase 11 traces them too
+    ctx["rows"].setdefault("K2", []).extend(out["k2_rows"])
+    _add_launches(ctx, **out["launches"])
+
+
 def step_scripts(ctx) -> None:
     launches, ctx["script_lines"] = phase_scripts()
     _add_launches(ctx, **launches)
@@ -5148,6 +5555,7 @@ PHASES = {
     "ops": step_clip_path(phase_ops),
     "md_int8": step_md_int8,
     "train": lambda ctx: phase_train(),
+    "parallel": step_parallel,
     "reference": lambda ctx: phase_reference(),
     "scripts": step_scripts,
     "device": lambda ctx: phase_device(ctx["rows"]),

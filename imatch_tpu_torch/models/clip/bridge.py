@@ -66,13 +66,16 @@ def params_from_numpy(
     device="cpu",
     dtype: torch.dtype = torch.float32,
     quant: Optional[str] = None,
+    shards: int = 1,
 ) -> CLIPModel:
     """A CLIPModel on ``device`` holding ``tree``'s weights in ``dtype``
     (LayerNorms in fp32). ``quant="int8"`` builds the W8A8 image encoder
     from the tree's fp32 weights before the cast (clip/quant.py), as the
-    JAX package's ``quantize_vision_tower`` does from its params."""
+    JAX package's ``quantize_vision_tower`` does from its params.
+    ``shards=M``: ``tree`` is one model shard's slice of a tree by
+    ``clip_param_specs`` (parallel/sharding.py), the module that shard's."""
     with torch.device("meta"):
-        model = CLIPModel(cfg)
+        model = CLIPModel(cfg, shards)
     model = model.to_empty(device=device).float()
     vt, tt, vm, tm = tree["vision"], tree["text"], model.vision, model.text
     _set(vm.patch_embedding.weight, _f32(vt["patch_embedding"]).transpose(3, 2, 0, 1))

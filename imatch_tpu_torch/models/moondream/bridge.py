@@ -44,12 +44,14 @@ def md_params_from_numpy(
     dtype: torch.dtype = torch.float32,
     param_dtype: Optional[torch.dtype] = None,
     packed: bool = True,
+    shards: int = 1,
 ) -> MoondreamModel:
     """A MoondreamModel on ``device`` holding ``tree``'s weights, cast as
     ``model.cast_compute`` says, with packed decoder projections unless
-    ``packed=False``."""
+    ``packed=False``. ``shards=M``: ``tree`` is one model shard's slice of
+    a tree by ``md_param_specs`` (parallel/sharding.py)."""
     with torch.device("meta"):
-        model = MoondreamModel(cfg)
+        model = MoondreamModel(cfg, shards)
     model = model.to_empty(device=device).float()
     vt, pt, tt = tree["vision"], tree["projector"], tree["text"]
     vm, tm = model.vision, model.text

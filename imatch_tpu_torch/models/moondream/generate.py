@@ -61,7 +61,9 @@ def prefill(
     forward's own keys and values, padded; ``cache_dtype`` (default the
     compute dtype) ``torch.int8`` quantizes them per (B, H, slot), the
     padded slots at scale 1. ``act_quant``: the W8A8 prefill. Returns (last
-    logits (B, V) fp32, cache or None, next position)."""
+    logits (B, V) fp32, cache or None, next position). A sharded model's
+    cache is a list of its model shards' caches, split by heads; its
+    logits are gathered over the vocabulary."""
     cfg = model.cfg
     b = token_ids.shape[0]
     tok = embed_tokens(model, token_ids)
@@ -74,15 +76,28 @@ def prefill(
     n = cfg.text.max_seq
     if max_new:
         n = min(n, -(-(s + max_new) // 128) * 128)
-    hidden, (ks, vs) = decoder_forward(model, seq, None, 0, collect_kv=True, act_quant=act_quant)
-    cache = init_cache(cfg, b, device=ks.device, dtype=cache_dtype or ks.dtype, cache_len=n)
+    hidden, kv = decoder_forward(model, seq, None, 0, collect_kv=True, act_quant=act_quant)
+    per_shard = kv if isinstance(kv, list) else [kv]
+    caches = [_filled_cache(cfg, b, ks, vs, n, cache_dtype) for ks, vs in per_shard]
+    del kv, per_shard
+    cache = caches if len(model.peers) else caches[0]
+    return lm_logits(model, hidden[:, -1:, :])[:, 0], cache, s
+
+
+def _filled_cache(cfg, b: int, ks, vs, n: int, cache_dtype) -> KVCache:
+    """An n-slot cache holding the prefill's keys and values (L, B, H, S,
+    Dh) in its first S slots, quantized where ``cache_dtype`` is int8
+    (the padded slots at scale 1); H is a model shard's heads."""
+    s = ks.shape[3]
+    cache = init_cache(
+        cfg, b, device=ks.device, dtype=cache_dtype or ks.dtype, cache_len=n, num_heads=ks.shape[2]
+    )
     if cache.ks is not None:
         ks, cache.ks[:, :, :, :s] = _quant_kv_cols(ks)
         vs, cache.vs[:, :, :, :s] = _quant_kv_cols(vs)
     cache.k[:, :, :, :s] = ks
     cache.v[:, :, :, :s] = vs
-    del ks, vs
-    return lm_logits(model, hidden[:, -1:, :])[:, 0], cache, s
+    return cache
 
 
 class GenResult(NamedTuple):

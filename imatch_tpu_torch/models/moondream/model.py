@@ -43,18 +43,30 @@ The int8 modes, each opt-in (models/moondream/runtime.py):
   is int8 x int8 -> int32 (``ops/quant.py`` ``qdot_int8``). Projections
   whose weights are not int8 take the plain product. Decode never takes
   it (a step's rows are too few for the int8 GEMM), nor does JAX.
+
+Tensor parallelism (JAX's ``md_param_specs``, placed by
+parallel/sharding.py's ``shard_model``): a model built with ``shards=M``
+holds model shard 0's slices and every replicated leaf, its ``peers`` the
+other shards' slices. The vision layers split as the CLIP encoder's (K2
+a shard over its ``16 / M`` heads at Dh = 72); the projector's ``fc1`` by
+columns and ``fc2`` by rows; each decoder layer's q, k, v and MLP-in by
+columns (by heads: the rotary stays per head) and ``out`` and ``fc2`` by
+rows, with one reduce of ``out(o) + fc2(gelu(m1))`` a layer; the LM head
+over the vocabulary, its (B, V) logits gathered. A KV cache is a list of
+per-shard caches, split by heads. The int8 modes run on one device.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from imatch_tpu_torch.models.clip.model import Encoder, LayerNorm32
+from imatch_tpu_torch.models.clip.model import Encoder, LayerNorm32, _local
 from imatch_tpu_torch.models.moondream.configs import MDTextConfig, MoondreamConfig
+from imatch_tpu_torch.ops.collectives import gather, reduce_sum
 from imatch_tpu_torch.ops.quant import (
     ln_quant_rows_int8,
     qdot_int8,
@@ -75,34 +87,44 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class MDVisionTower(nn.Module):
-    def __init__(self, cfg: MoondreamConfig):
+    def __init__(self, cfg: MoondreamConfig, shards: int = 1):
         super().__init__()
         v = cfg.vision
         self.cfg = v
         self.patch_embedding = nn.Conv2d(3, v.hidden_size, v.patch_size, stride=v.patch_size)
         self.position_embedding = nn.Parameter(torch.empty(v.num_patches, v.hidden_size))
         self.encoder = Encoder(
-            v.num_layers, v.hidden_size, v.mlp_size, v.num_heads, v.layer_norm_eps, "gelu_tanh"
+            v.num_layers, v.hidden_size, v.mlp_size, v.num_heads, v.layer_norm_eps, "gelu_tanh", shards
         )
         self.post_ln = LayerNorm32(v.hidden_size, eps=v.layer_norm_eps)
 
-    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) normalized pixels -> (B, P, D_vision)."""
+    def forward(self, pixels: torch.Tensor, peers: Sequence["MDVisionTower"] = ()) -> torch.Tensor:
+        """(B, H, W, 3) normalized pixels -> (B, P, D_vision). ``peers``:
+        the other model shards' towers (their encoder slices)."""
         w = self.patch_embedding.weight
         x = self.patch_embedding(pixels.to(w.dtype).permute(0, 3, 1, 2))
         x = x.flatten(2).transpose(1, 2)  # (B, patches, D), row-major patches
         x = x + self.position_embedding.to(x.dtype)
-        return self.post_ln(self.encoder(x, causal=False))
+        return self.post_ln(self.encoder(x, False, "auto", [p.encoder for p in peers]))
 
 
 class MDProjector(nn.Module):
-    def __init__(self, cfg: MoondreamConfig):
+    def __init__(self, cfg: MoondreamConfig, shards: int = 1):
         super().__init__()
-        self.fc1 = nn.Linear(cfg.vision.hidden_size, cfg.proj_hidden)
-        self.fc2 = nn.Linear(cfg.proj_hidden, cfg.text.hidden_size)
+        self.fc1 = nn.Linear(cfg.vision.hidden_size, _local(cfg.proj_hidden, shards, "proj_hidden"))
+        self.fc2 = nn.Linear(self.fc1.out_features, cfg.text.hidden_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(_gelu(self.fc1(x)))
+    def jax_sources(self):
+        """JAX's projector weights of each Linear (``EncoderLayer.jax_sources``)."""
+        return {"fc1": (("w1", self.fc1.out_features),), "fc2": (("w2", self.fc2.out_features),)}
+
+    def forward(self, x: torch.Tensor, peers: Sequence["MDProjector"] = ()) -> torch.Tensor:
+        if not peers:
+            return self.fc2(_gelu(self.fc1(x)))
+        parts = [
+            F.linear(_gelu(p.fc1(x.to(p.fc1.weight.device))), p.fc2.weight) for p in (self, *peers)
+        ]
+        return reduce_sum(parts, x.device) + self.fc2.bias
 
 
 # ---------------------------------------------------------------------------
@@ -162,17 +184,30 @@ class MDTextLayer(nn.Module):
     ``act_quant``: the W8A8 products where the weights are int8 (see the
     module docstring)."""
 
-    def __init__(self, t: MDTextConfig):
+    def __init__(self, t: MDTextConfig, shards: int = 1):
         super().__init__()
-        d, m = t.hidden_size, t.mlp_size
-        self.d = d
+        d = t.hidden_size
+        w = _local(t.num_heads, shards, "num_heads") * t.head_dim
+        m = _local(t.mlp_size, shards, "mlp_size")
+        self.d = w  # the width of this shard's q, k and v (its heads)
         self.ln = LayerNorm32(d, eps=t.layer_norm_eps)
-        self.q = nn.Linear(d, d)
-        self.k = nn.Linear(d, d)
-        self.v = nn.Linear(d, d)
+        self.q = nn.Linear(d, w)
+        self.k = nn.Linear(d, w)
+        self.v = nn.Linear(d, w)
         self.fc1 = nn.Linear(d, m)
-        self.out = nn.Linear(d, d)
+        self.out = nn.Linear(w, d)
         self.fc2 = nn.Linear(m, d)
+
+    def jax_sources(self):
+        """JAX's layer weights of each Linear (``EncoderLayer.jax_sources``):
+        the packed ``qkv_mlp`` stacks q, k, v and MLP-in."""
+        w, m, d = self.d, self.fc2.in_features, self.out.out_features
+        ins = {"q": ("attn.wq", w), "k": ("attn.wk", w), "v": ("attn.wv", w), "fc1": ("mlp.w1", m)}
+        if hasattr(self, "qkv_mlp"):
+            ins = {"qkv_mlp": tuple(ins.values())}
+        else:
+            ins = {n: (src,) for n, src in ins.items()}
+        return {**ins, "out": (("attn.wo", d),), "fc2": (("mlp.w2", d),)}
 
     def project(self, h: torch.Tensor, act_quant: bool = False):
         """Residual stream -> ([q | k], v, MLP-in), each (B, Sq, width): q
@@ -186,8 +221,16 @@ class MDTextLayer(nn.Module):
         if act_quant and any(int8):
             yq = ln_quant_rows_int8(h.contiguous(), self.ln.weight, self.ln.bias, self.ln.eps)
         y = self.ln(h) if yq is None or not all(int8) else None
-        outs = [_project(lin, y, yq, h.dtype) for lin in lins]
-        if packed:
+        return self._split([_project(lin, y, yq, h.dtype) for lin in lins])
+
+    def project_normed(self, y: torch.Tensor):
+        """``project`` of the normalized stream ``y`` (a model shard's
+        projections; no int8)."""
+        lins = (self.qkv_mlp,) if hasattr(self, "qkv_mlp") else (self.q, self.k, self.v, self.fc1)
+        return self._split([lin(y) for lin in lins])
+
+    def _split(self, outs):
+        if len(outs) == 1:  # packed
             d = self.d
             z = outs[0]
             return z[..., : 2 * d], z[..., 2 * d : 3 * d], z[..., 3 * d :]
@@ -206,25 +249,31 @@ class MDTextLayer(nn.Module):
 
 
 class MDTextModel(nn.Module):
-    def __init__(self, t: MDTextConfig):
+    def __init__(self, t: MDTextConfig, shards: int = 1):
         super().__init__()
         self.cfg = t
         self.token_embedding = nn.Embedding(t.vocab_size, t.hidden_size)
-        self.layers = nn.ModuleList(MDTextLayer(t) for _ in range(t.num_layers))
+        self.layers = nn.ModuleList(MDTextLayer(t, shards) for _ in range(t.num_layers))
         self.final_ln = LayerNorm32(t.hidden_size, eps=t.layer_norm_eps)
-        self.lm_head = nn.Linear(t.hidden_size, t.vocab_size)
+        self.lm_head = nn.Linear(t.hidden_size, _local(t.vocab_size, shards, "vocab_size"))
+
+    def jax_sources(self):
+        """JAX's LM head weight (``EncoderLayer.jax_sources``)."""
+        return {"lm_head": (("lm_head.w", self.lm_head.out_features),)}
 
 
 class MoondreamModel(nn.Module):
     """Vision tower, projector and decoder; see the module docstring for
-    the dtypes each holds (``cast_compute``)."""
+    the dtypes each holds (``cast_compute``). ``shards=M``: model shard
+    0's slice; ``peers``: the other shards' (``shard_model``)."""
 
-    def __init__(self, cfg: MoondreamConfig):
+    def __init__(self, cfg: MoondreamConfig, shards: int = 1):
         super().__init__()
         self.cfg = cfg
-        self.vision = MDVisionTower(cfg)
-        self.projector = MDProjector(cfg)
-        self.text = MDTextModel(cfg.text)
+        self.vision = MDVisionTower(cfg, shards)
+        self.projector = MDProjector(cfg, shards)
+        self.text = MDTextModel(cfg.text, shards)
+        self.peers = nn.ModuleList()
 
     @property
     def dtype(self) -> torch.dtype:
@@ -233,7 +282,9 @@ class MoondreamModel(nn.Module):
 
 
 def _is_fp32_param(mod: nn.Module, model: MoondreamModel) -> bool:
-    return isinstance(mod, LayerNorm32) or mod is model.text.lm_head
+    return isinstance(mod, LayerNorm32) or any(
+        mod is t.lm_head for t in (model.text, *(p.text for p in model.peers))
+    )
 
 
 @torch.no_grad()
@@ -337,8 +388,10 @@ def init_random(
 @torch.no_grad()
 def encode_image_features(model: MoondreamModel, pixels: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) normalized pixels -> (B, P, D_text) LM-space embeds,
-    in the compute dtype."""
-    return model.projector(model.vision(pixels))
+    in the compute dtype, over the model's shards."""
+    peers = list(model.peers)
+    x = model.vision(pixels, [p.vision for p in peers])
+    return model.projector(x, [p.projector for p in peers])
 
 
 class KVCache(NamedTuple):
@@ -350,12 +403,19 @@ class KVCache(NamedTuple):
 
 
 def init_cache(
-    cfg: MoondreamConfig, batch: int, *, device, dtype: torch.dtype, cache_len: int = 0
+    cfg: MoondreamConfig,
+    batch: int,
+    *,
+    device,
+    dtype: torch.dtype,
+    cache_len: int = 0,
+    num_heads: int = 0,
 ) -> KVCache:
-    """cache_len 0 -> the full max_seq. ``dtype=torch.int8``: the int8
+    """cache_len 0 -> the full max_seq; num_heads 0 -> every head (a
+    model shard's cache holds its own). ``dtype=torch.int8``: the int8
     cache, its scales 1."""
     t = cfg.text
-    shape = (t.num_layers, batch, t.num_heads, cache_len or t.max_seq, t.head_dim)
+    shape = (t.num_layers, batch, num_heads or t.num_heads, cache_len or t.max_seq, t.head_dim)
     k, v = (torch.zeros(shape, dtype=dtype, device=device) for _ in range(2))
     if dtype != torch.int8:
         return KVCache(k, v)
@@ -436,11 +496,46 @@ def _attend_cached(
     return _mm_f32(probs.to(q.dtype), cv.to(q.dtype)).to(q.dtype)
 
 
+def _attend_layer(qk, v, cache, kv, li, start_pos, hidden, cos, sin, t):
+    """One layer's attention on one model shard: its heads' rotary, the
+    cache write (or the keys and values collected into ``kv``), and
+    ``_attend_cached``; -> (B, Sq, heads * Dh)."""
+    b, sq, _ = v.shape
+    hd = t.head_dim
+    nh = v.shape[-1] // hd
+    dev = v.device
+    n_vis = start_pos + sq
+    qk = _rotary(qk.unflatten(-1, (2, nh, hd)), cos.to(dev), sin.to(dev), t.rotary_dim)
+    q, k = qk[:, :, 0].transpose(1, 2), qk[:, :, 1].transpose(1, 2)
+    v = v.unflatten(-1, (nh, hd)).transpose(1, 2)
+    sk = sv = None
+    if cache is None:
+        ck, cv = k, v
+        if kv is not None:
+            kv[0].append(k)
+            kv[1].append(v)
+    elif cache.ks is not None:
+        kq, k_s = _quant_kv_cols(k)
+        vq, v_s = _quant_kv_cols(v)
+        cache.k[li, :, :, start_pos:n_vis] = kq
+        cache.v[li, :, :, start_pos:n_vis] = vq
+        cache.ks[li, :, :, start_pos:n_vis] = k_s
+        cache.vs[li, :, :, start_pos:n_vis] = v_s
+        ck, cv = cache.k[li, :, :, :n_vis], cache.v[li, :, :, :n_vis]
+        sk, sv = cache.ks[li, :, :, :n_vis], cache.vs[li, :, :, :n_vis]
+    else:
+        cache.k[li, :, :, start_pos:n_vis] = k
+        cache.v[li, :, :, start_pos:n_vis] = v
+        ck, cv = cache.k[li, :, :, :n_vis], cache.v[li, :, :, :n_vis]
+    o = _attend_cached(q, ck, cv, None if hidden is None else hidden.to(dev), sk, sv)
+    return o.transpose(1, 2).reshape(b, sq, nh * hd)
+
+
 @torch.no_grad()
 def decoder_forward(
     model: MoondreamModel,
     embeds: torch.Tensor,
-    cache: Optional[KVCache],
+    cache,
     start_pos: int,
     *,
     collect_kv: bool = False,
@@ -457,12 +552,23 @@ def decoder_forward(
     keys and values; returns (hidden, ``(K, V)`` stacked ``(L, B, H, Sq,
     Dh)`` when ``collect_kv``, else None). An int8 cache stores each new
     slot's codes and scales and attends over the codes. ``act_quant``: the
-    W8A8 products (prefill only, see the module docstring)."""
+    W8A8 products (prefill only, see the module docstring).
+
+    A sharded model (``peers``) runs each layer's projections and
+    attention on every model shard over its heads and reduces
+    ``out(o) + fc2(gelu(m1))`` once; its cache is a list of per-shard
+    caches, and ``collect_kv`` gives a list of per-shard ``(K, V)``."""
     t = model.cfg.text
     b, sq, d = embeds.shape
-    nh, hd = t.num_heads, t.head_dim
+    texts = [model.text, *(p.text for p in model.peers)]
+    tp = len(texts) > 1
+    if tp and act_quant:
+        raise ValueError("the W8A8 prefill runs on one device")
     if cache is None and start_pos != 0:
         raise ValueError("a cache-free forward starts at position 0")
+    caches = [None] * len(texts) if cache is None else (list(cache) if tp else [cache])
+    if len(caches) != len(texts):
+        raise ValueError(f"{len(caches)} caches for {len(texts)} model shards")
     x = embeds.to(model.dtype)
     cos, sin = _rotary_tables(start_pos, sq, t.rotary_dim, x.device)
     n_vis = start_pos + sq
@@ -470,49 +576,41 @@ def decoder_forward(
     if sq > 1:
         qpos = torch.arange(start_pos, n_vis, device=x.device)
         hidden = torch.arange(n_vis, device=x.device)[None, :] > qpos[:, None]
-    ks: List[torch.Tensor] = []
-    vs: List[torch.Tensor] = []
+    kv = [([], []) if cache is None and collect_kv else None for _ in texts]
     for li, layer in enumerate(model.text.layers):
-        qk, v, m1 = layer.project(x, act_quant)
-        qk = _rotary(qk.unflatten(-1, (2, nh, hd)), cos, sin, t.rotary_dim)
-        q, k = qk[:, :, 0].transpose(1, 2), qk[:, :, 1].transpose(1, 2)
-        v = v.unflatten(-1, (nh, hd)).transpose(1, 2)
-        sk = sv = None
-        if cache is None:
-            ck, cv = k, v
-            if collect_kv:
-                ks.append(k)
-                vs.append(v)
-        elif cache.ks is not None:
-            kq, k_s = _quant_kv_cols(k)
-            vq, v_s = _quant_kv_cols(v)
-            cache.k[li, :, :, start_pos:n_vis] = kq
-            cache.v[li, :, :, start_pos:n_vis] = vq
-            cache.ks[li, :, :, start_pos:n_vis] = k_s
-            cache.vs[li, :, :, start_pos:n_vis] = v_s
-            ck, cv = cache.k[li, :, :, :n_vis], cache.v[li, :, :, :n_vis]
-            sk, sv = cache.ks[li, :, :, :n_vis], cache.vs[li, :, :, :n_vis]
-        else:
-            cache.k[li, :, :, start_pos:n_vis] = k
-            cache.v[li, :, :, start_pos:n_vis] = v
-            ck, cv = cache.k[li, :, :, :n_vis], cache.v[li, :, :, :n_vis]
-        o = _attend_cached(q, ck, cv, hidden, sk, sv)
-        o = o.transpose(1, 2).reshape(b, sq, d)
-        attn_out, mlp_out = layer.residual(o, m1, act_quant)
-        x = x + attn_out + mlp_out  # Phi parallel residual
-    if cache is None:
-        return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
-    return x, cache
+        if not tp:
+            qk, v, m1 = layer.project(x, act_quant)
+            o = _attend_layer(qk, v, caches[0], kv[0], li, start_pos, hidden, cos, sin, t)
+            attn_out, mlp_out = layer.residual(o, m1, act_quant)
+            x = x + attn_out + mlp_out  # Phi parallel residual
+            continue
+        y = layer.ln(x)
+        parts = []
+        for text, c, kv_m in zip(texts, caches, kv):
+            lm = text.layers[li]
+            qk, v, m1 = lm.project_normed(y.to(lm.out.weight.device))
+            o = _attend_layer(qk, v, c, kv_m, li, start_pos, hidden, cos, sin, t)
+            parts.append(F.linear(o, lm.out.weight) + F.linear(_gelu(m1), lm.fc2.weight))
+        x = x + reduce_sum(parts, x.device) + (layer.out.bias + layer.fc2.bias)
+    if cache is not None:
+        return x, cache
+    if not collect_kv:
+        return x, None
+    kv = [(torch.stack(ks), torch.stack(vs)) for ks, vs in kv]
+    return x, (kv if tp else kv[0])
 
 
 @torch.no_grad()
 def lm_logits(model: MoondreamModel, hidden: torch.Tensor) -> torch.Tensor:
-    """(B, Sq, D) -> (B, Sq, V) fp32 logits."""
+    """(B, Sq, D) -> (B, Sq, V) fp32 logits; over a sharded model each
+    shard's vocabulary slice, gathered."""
     h = model.text.final_ln(hidden)
     head = model.text.lm_head
     if isinstance(head, Int8Linear):
         return head.logits(h)
-    return F.linear(h.float(), head.weight, head.bias)
+    heads = [head, *(p.text.lm_head for p in model.peers)]
+    parts = [F.linear(h.to(w.weight.device).float(), w.weight, w.bias) for w in heads]
+    return gather(parts, h.device, dim=-1)
 
 
 @torch.no_grad()

@@ -1,6 +1,26 @@
-"""Multi-device paths and training: the row-sharded index engines over a
-device list, and the contrastive training step (one device)."""
+"""Multi-device paths and training: the (data, model) device grid, the
+Megatron partition specs and their placement, the contrastive training
+step over the grid, checkpoints, and the row-sharded index engines over a
+device list (one process; parallel/mesh.py)."""
 
+from imatch_tpu_torch.parallel.mesh import make_mesh, mesh_shape_for
+from imatch_tpu_torch.parallel.sharding import (
+    clip_param_specs,
+    data_spec,
+    md_param_specs,
+    replicated,
+)
+from imatch_tpu_torch.parallel.dist_ivf import (
+    prepare_sharded_ivf,
+    prepare_sharded_ivf_incremental,
+    sharded_ivf_topk,
+)
+from imatch_tpu_torch.parallel.dist_search import (
+    pad_corpus_for_mesh,
+    prepare_sharded_corpus,
+    sharded_cosine_topk,
+    sharded_topk_prepared,
+)
 from imatch_tpu_torch.parallel.train import (
     TrainState,
     clip_loss,
@@ -9,6 +29,19 @@ from imatch_tpu_torch.parallel.train import (
 )
 
 __all__ = [
+    "make_mesh",
+    "mesh_shape_for",
+    "clip_param_specs",
+    "data_spec",
+    "md_param_specs",
+    "replicated",
+    "pad_corpus_for_mesh",
+    "prepare_sharded_corpus",
+    "prepare_sharded_ivf",
+    "prepare_sharded_ivf_incremental",
+    "sharded_cosine_topk",
+    "sharded_ivf_topk",
+    "sharded_topk_prepared",
     "TrainState",
     "clip_loss",
     "make_train_step",

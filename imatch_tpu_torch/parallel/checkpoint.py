@@ -15,6 +15,12 @@ other:
   ``opt_state/1/0/nu/...``: optax's ``ScaleByAdamState`` inside
   ``chain(clip_by_global_norm, adamw)``, each moment mapped exactly as the
   parameter it belongs to.
+
+A state sharded over a grid's model axis saves its full arrays (each
+split leaf's slices joined, parallel/sharding.py's ``gather_named``), as
+JAX's ``np.asarray`` of a sharded leaf does, and ``restore_checkpoint``
+splits them again into the template's layout: a checkpoint written at
+any model-parallel size, by either package, restores at any other.
 """
 
 from __future__ import annotations
@@ -27,13 +33,15 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from imatch_tpu_torch.models.clip.bridge import (
-    named_to_numpy,
-    numpy_to_named,
-    params_to_numpy,
-    tree_shapes,
+from imatch_tpu_torch.models.clip.bridge import named_to_numpy, numpy_to_named, tree_shapes
+from imatch_tpu_torch.parallel.sharding import (
+    check_specs,
+    clip_param_specs,
+    gather_named,
+    model_shards,
+    shard_named,
 )
-from imatch_tpu_torch.parallel.train import AdamState, TrainState, check_mesh
+from imatch_tpu_torch.parallel.train import AdamState, TrainState, as_grid
 
 ADAM = "opt_state/1/0"  # optax's chain: index 1 is adamw, its 0 scale_by_adam
 
@@ -74,15 +82,19 @@ def _expected_shapes(cfg) -> Dict:
 
 
 def _state_arrays(state: TrainState) -> Dict[str, np.ndarray]:
-    """Every leaf of ``state`` as a numpy array under its JAX key."""
-    cfg = state.params.cfg
+    """Every leaf of ``state`` as a full numpy array under its JAX key."""
+    model = state.params
     opt = state.opt_state
+
+    def tree(named):
+        return named_to_numpy(gather_named(named, model), model.cfg)
+
     return {
         "step": np.asarray(state.step, dtype=np.int32),
-        **_flatten(params_to_numpy(state.params), "params"),
+        **_flatten(tree(dict(model.named_parameters())), "params"),
         f"{ADAM}/count": np.asarray(int(opt.count), dtype=np.int32),
-        **_flatten(named_to_numpy(opt.mu, cfg), f"{ADAM}/mu"),
-        **_flatten(named_to_numpy(opt.nu, cfg), f"{ADAM}/nu"),
+        **_flatten(tree(opt.mu), f"{ADAM}/mu"),
+        **_flatten(tree(opt.nu), f"{ADAM}/nu"),
     }
 
 
@@ -114,13 +126,23 @@ def restore_checkpoint(
     template: TrainState,
     step: Optional[int] = None,
     mesh: Optional[Sequence] = None,
+    param_specs: Optional[Dict] = None,
 ) -> TrainState:
     """The state saved at ``step`` (default the latest), written into
     ``template``'s tensors in place (its config decides the expected
-    shapes; its device holds the result). A missing leaf raises
+    shapes; its devices hold the result). A missing leaf raises
     ``KeyError``, a leaf of another shape ``ValueError`` (a checkpoint of
-    another config); only a one-element scalar is reshaped."""
-    check_mesh(mesh)
+    another config); only a one-element scalar is reshaped. The full
+    arrays are split into the template's model shards: ``mesh`` and
+    ``param_specs`` (JAX's arguments) must be the template's grid and
+    ``clip_param_specs()``, the one layout the port's modules hold."""
+    grid = as_grid(mesh)
+    check_specs(param_specs, clip_param_specs())
+    if grid is not None and grid.shape["model"] != model_shards(template.params):
+        raise ValueError(
+            f"mesh model axis {grid.shape['model']} != the template's "
+            f"{model_shards(template.params)} model shards"
+        )
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
@@ -148,7 +170,7 @@ def restore_checkpoint(
         (f"{ADAM}/mu", opt.mu),
         (f"{ADAM}/nu", opt.nu),
     ):
-        loaded = numpy_to_named(_unflatten(data, tree), cfg)
+        loaded = shard_named(numpy_to_named(_unflatten(data, tree), cfg), params)
         for n, t in named.items():
             t.copy_(loaded[n])
     opt.count.fill_(int(data[f"{ADAM}/count"]))

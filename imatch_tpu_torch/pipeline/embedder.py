@@ -23,11 +23,20 @@ from a ``torch.Generator`` (normal(0.02), as the JAX init draws). The
 device is ``cuda`` unless ``device="cpu"`` is passed (device.py); compute
 is bf16 on the card and fp32 on the CPU.
 
-Not ported yet (ROADMAP.md Queue 1 step 12): data parallelism.
+Data parallelism (``data_parallel=`` or IMATCH_EMBED_DP, as JAX's
+embedder): the towers run over the first n visible cards (fewer: a
+warning, and those), or over an explicit device list ``mesh=`` (a device
+may repeat: P logical shards of one card, or of the CPU). The weights are
+replicated (one copy a distinct device) and each padded chunk, text, image
+or the fused bulk-ingest step's frames, splits into equal row blocks, one
+a shard, gathered back in shard order on the first device; chunks pad to
+``pow2_bucket(b, max(chunk, d), multiple=d)``. The W8A8 tower replicates
+the same way.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import threading
@@ -43,6 +52,7 @@ from imatch_tpu_torch.device import DeviceLike, default_compute_dtype, resolve_d
 from imatch_tpu_torch.models.clip.bridge import params_from_numpy
 from imatch_tpu_torch.models.clip.configs import CLIPConfig, get_config
 from imatch_tpu_torch.models.clip.model import encode_image, encode_text, init_random
+from imatch_tpu_torch.ops.collectives import gather
 from imatch_tpu_torch.ops.phash import (
     DEVICE_BUCKET_MIN,
     bits_to_hex,
@@ -53,6 +63,7 @@ from imatch_tpu_torch.ops.phash import (
 from imatch_tpu_torch.ops.preprocess import preprocess_core, preprocess_images
 from imatch_tpu_torch.ops.resize import resample_matrix, resize_crop_matrices
 from imatch_tpu_torch.ops.tokenizer import default_tokenizer
+from imatch_tpu_torch.parallel.mesh import make_mesh
 from imatch_tpu_torch.runtime.scheduler import GATE
 from imatch_tpu_torch.utils.batching import pow2_bucket
 from imatch_tpu_torch.utils.metrics import METRICS
@@ -73,13 +84,23 @@ class ClipEmbedder:
         device: DeviceLike = None,
         compute_dtype: Optional[torch.dtype] = None,
         quant: Optional[str] = None,
+        data_parallel: Optional[int] = None,
+        mesh: Optional[Sequence] = None,
     ):
         """``quant``: ``"int8"`` for the W8A8 image tower, default from
         IMATCH_EMBED_QUANT (unset or ``none``: the full-precision tower).
-        The text tower is never quantized: queries keep full fidelity."""
+        The text tower is never quantized: queries keep full fidelity.
+        ``data_parallel``: shard embed batches over this many cards
+        (default IMATCH_EMBED_DP; 0 or 1: one device). ``mesh``: the data
+        shards' devices themselves, in order (overrides both)."""
         config = config or os.environ.get("IMATCH_CLIP_CONFIG", "vit-b32")
         self.cfg = get_config(config) if isinstance(config, str) else config
-        self.device = resolve_device(device)
+        if data_parallel is None:
+            data_parallel = int(os.environ.get("IMATCH_EMBED_DP", "0"))
+        self.mesh = self._data_shards(device, data_parallel, mesh)
+        # JAX's dp: 0 for one device, else the shard count
+        self.dp = len(self.mesh) if (mesh is not None or data_parallel > 1) else 0
+        self.device = self.mesh[0]
         self.compute_dtype = compute_dtype or default_compute_dtype(self.device)
         if quant is None:
             quant = os.environ.get("IMATCH_EMBED_QUANT", "")
@@ -118,6 +139,11 @@ class ClipEmbedder:
             )
         if self.quant == "int8":
             logger.info("image tower quantized: W8A8 int8 (K3/K4 quantize)")
+        # the weights replicated over the data shards: one copy a device
+        self._replicas = {self.device: self.model}
+        for dev in self.mesh:
+            if dev not in self._replicas:
+                self._replicas[dev] = copy.deepcopy(self.model).to(dev)
         self.tokenizer = default_tokenizer()
         self._lock = threading.Lock()
         # Query-text LRU of device-resident embeddings: a repeated query
@@ -137,25 +163,67 @@ class ClipEmbedder:
             self._fold_vocab = False
             self._model_eos = self.tokenizer.eos_id
         logger.info(
-            "embedder ready in %.2fs (%s, %s, %s)",
+            "embedder ready in %.2fs (%s, %s, %s, dp=%d)",
             time.time() - t0,
             self.cfg.name,
             self.device,
             str(self.compute_dtype).replace("torch.", ""),
+            self.dp or 1,
         )
+
+    @staticmethod
+    def _data_shards(device, data_parallel, mesh) -> list:
+        """The data shards' devices: ``mesh``, else the first
+        ``data_parallel`` visible cards (fewer: a warning, and those; on
+        the CPU there is one), else ``device`` alone."""
+        if mesh is not None:
+            return list(make_mesh(list(mesh)))
+        dev = resolve_device(device)
+        if data_parallel <= 1:
+            return [dev]
+        visible = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        devices = (visible if dev.type == "cuda" else [dev])[:data_parallel]
+        if len(devices) < data_parallel:
+            logger.warning(
+                "requested dp=%d but only %d devices; using %d",
+                data_parallel,
+                len(devices),
+                len(devices),
+            )
+        return devices
 
     @property
     def dim(self) -> int:
         return self.cfg.projection_dim
 
     def _chunks(self, n: int):
+        """``_chunk_bounds`` at IMATCH_EMBED_CHUNK rows (default 512)."""
+        return self._chunk_bounds(n, int(os.environ.get("IMATCH_EMBED_CHUNK", "512")))
+
+    def _chunk_bounds(self, n: int, chunk: int):
         """(start, rows, padded rows) of each tower call: chunks of at most
-        IMATCH_EMBED_CHUNK rows (default 512), each padded up to a power
-        of two by repeating its last row."""
-        chunk = int(os.environ.get("IMATCH_EMBED_CHUNK", "512"))
+        ``chunk`` rows, each padded up to a power of two by repeating its
+        last row, then to a multiple of the data shards."""
+        d = self.dp or 1
         for s in range(0, n, chunk):
             b = min(chunk, n - s)
-            yield s, b, pow2_bucket(b, chunk)
+            yield s, b, pow2_bucket(b, max(chunk, d), multiple=d)
+
+    def _sharded(self, fn, rows: torch.Tensor):
+        """``fn(model, block)`` on each data shard's equal block of
+        ``rows`` (on the shard's device, with its replica), the results
+        gathered on the first device in shard order (a tuple of results
+        gathered one by one)."""
+        if len(self.mesh) == 1:
+            return fn(self.model, rows)
+        per = rows.shape[0] // len(self.mesh)
+        outs = [
+            fn(self._replicas[dev], rows[j * per : (j + 1) * per].to(dev))
+            for j, dev in enumerate(self.mesh)
+        ]
+        if isinstance(outs[0], tuple):
+            return tuple(gather(parts, self.device) for parts in zip(*outs))
+        return gather(outs, self.device)
 
     def _run_tower(self, fn, rows: torch.Tensor, metric: str) -> torch.Tensor:
         outs = []
@@ -164,16 +232,16 @@ class ClipEmbedder:
                 part = rows[s : s + b]
                 if bp > b:
                     part = torch.cat([part, part[-1:].expand(bp - b, *part.shape[1:])])
-                outs.append(fn(part)[:b])
+                outs.append(self._sharded(fn, part)[:b])
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def _embed_pixels(self, pixels: torch.Tensor) -> torch.Tensor:
-        return self._run_tower(lambda p: encode_image(self.model, p), pixels, "embed.image")
+        return self._run_tower(encode_image, pixels, "embed.image")
 
     def _embed_tokens(self, tokens: np.ndarray) -> torch.Tensor:
         ids = torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
         return self._run_tower(
-            lambda t: encode_text(self.model, t, eos_token_id=self._model_eos), ids, "embed.text"
+            lambda model, t: encode_text(model, t, eos_token_id=self._model_eos), ids, "embed.text"
         )
 
     def _tokenize(self, texts: Sequence[str]) -> np.ndarray:
@@ -276,13 +344,22 @@ class ClipEmbedder:
     def _fused_step(self, frames: torch.Tensor, consts) -> tuple:
         """The fused bulk-ingest step: uint8 frames uploaded once feed both
         consumers, CLIP preprocess + image tower and the pHash bits (with
-        the 32x32 grids for the host tail). Returns device tensors
-        (embeddings, bits, confident, grids)."""
-        a_v_c, a_h_c, a_v_p, a_h_p = consts
-        pixels = preprocess_core(frames, a_v_c, a_h_c, dtype=self.compute_dtype)
-        emb = encode_image(self.model, pixels)
-        bits, confident, small = phash_core(frames, a_v_p, a_h_p)
-        return emb, bits, confident, small
+        the 32x32 grids for the host tail), each data shard on its block
+        of the frames (the resample constants replicated). Returns device
+        tensors (embeddings, bits, confident, grids)."""
+        per_device = {}
+
+        def step(model, block):
+            dev = block.device
+            if dev not in per_device:
+                per_device[dev] = [c.to(dev) for c in consts]
+            a_v_c, a_h_c, a_v_p, a_h_p = per_device[dev]
+            pixels = preprocess_core(block, a_v_c, a_h_c, dtype=self.compute_dtype)
+            emb = encode_image(model, pixels)
+            bits, confident, small = phash_core(block, a_v_p, a_h_p)
+            return emb, bits, confident, small
+
+        return self._sharded(step, frames)
 
     def ids_and_embed_images_stream(
         self,

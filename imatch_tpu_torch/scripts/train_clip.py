@@ -2,21 +2,27 @@
 
 Port of ``scripts/train_clip.py``: contrastively fine-tunes the CLIP
 towers on (processed image, description + custom metadata) pairs straight
-out of the app's own state directory, with checkpoint and resume in the
-JAX package's format (``parallel/checkpoint.py``: either package resumes
-the other's run). One device: ``--mp`` above 1 raises.
+out of the app's own state directory, with DP + TP over a (data, model)
+grid and checkpoint and resume in the JAX package's format
+(``parallel/checkpoint.py``: either package resumes the other's run, at
+any model-parallel size).
 
 Usage:
   python -m imatch_tpu_torch.scripts.train_clip --root approot \\
-      --config vit-b32 --steps 1000 --batch 64 \\
+      --config vit-b32 --steps 1000 --batch 64 --mp 1 \\
       --ckpt-dir ckpt [--resume] [--lr 1e-5] [--synthetic N] [--device cpu]
 
 --synthetic N trains on N random pairs (pipeline smoke-testing without an
-indexed library). It trains on ``cuda`` unless ``--device`` or
-IMATCH_DEVICE asks for the CPU, in bf16 on the card and fp32 on the CPU,
-as the JAX CLI does on its accelerator and elsewhere. It logs
-``step N loss X`` every 10 steps (or 30 s), ``resumed from step N`` and
-``done at step N``.
+indexed library). The grid is ``make_mesh(model_parallel=--mp)`` over every
+visible card, as the JAX CLI's mesh is over every local device, or over
+``--device``: one device (``cpu``), or a comma-separated device list in
+which a device may repeat (``cpu,cpu,cpu,cpu``: four logical shards of the
+CPU, as the JAX suite's virtual host devices; ``cuda:0,cuda:0``). A batch
+that does not divide by the data axis is rounded up, with a warning. It
+trains in bf16 on the card and fp32 on the CPU, as the JAX CLI does on its
+accelerator and elsewhere. It logs ``mesh: data=D model=M``, ``step N
+loss X`` every 10 steps (or 30 s), ``resumed from step N`` and ``done at
+step N``. A run over several real cards has not been made.
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--config", default="vit-b32")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=64)
-    ap.add_argument("--mp", type=int, default=1, help="model-parallel size (1 only)")
+    ap.add_argument("--mp", type=int, default=1, help="model-parallel size")
     ap.add_argument("--lr", type=float, default=1e-5)
     ap.add_argument("--ckpt-dir", default="ckpt")
     ap.add_argument("--ckpt-every", type=int, default=100)
@@ -70,7 +76,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument(
         "--device",
         default=os.environ.get("IMATCH_DEVICE") or None,
-        help="cuda (default) or cpu; IMATCH_DEVICE sets the default",
+        help="the grid's devices: every visible card (default), cpu, or a "
+        "comma-separated list in which a device may repeat; IMATCH_DEVICE sets the default",
     )
     return ap.parse_args(argv)
 
@@ -154,30 +161,45 @@ def batch_source(args: argparse.Namespace, cfg, device) -> Optional[Callable]:
     return next_batch
 
 
+def grid_of(args: argparse.Namespace):
+    """``make_mesh(model_parallel=--mp)`` over ``--device``'s devices (a
+    comma-separated list) or every visible card."""
+    from imatch_tpu_torch.parallel.mesh import make_mesh
+
+    devices = args.device.split(",") if args.device else None
+    return make_mesh(model_parallel=args.mp, devices=devices)
+
+
 def train(args: argparse.Namespace) -> Run:
-    from imatch_tpu_torch.device import default_compute_dtype, resolve_device
+    from imatch_tpu_torch.device import default_compute_dtype
     from imatch_tpu_torch.models.clip.configs import get_config
     from imatch_tpu_torch.parallel.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+    from imatch_tpu_torch.parallel.sharding import clip_param_specs
     from imatch_tpu_torch.parallel.train import init_train_state, make_optimizer, make_train_step
 
-    if args.mp != 1:
-        raise NotImplementedError(
-            f"--mp {args.mp}: tensor-parallel training is not ported yet (one device only)"
-        )
-    device = resolve_device(args.device)
+    mesh = grid_of(args)
+    device = mesh[0]
     cfg = get_config(args.config)
     dtype = default_compute_dtype(device)
-    logger.info("device %s, %s compute, config %s", device, dtype, cfg.name)
+    logger.info("mesh: data=%d model=%d (%s)", mesh.shape["data"], mesh.shape["model"], device)
+    logger.info("%s compute, config %s", dtype, cfg.name)
+    dp = mesh.shape["data"]
+    if args.batch % dp:
+        new_batch = -(-args.batch // dp) * dp
+        logger.warning(
+            "batch %d not divisible by data-parallel size %d; using %d", args.batch, dp, new_batch
+        )
+        args.batch = new_batch
 
     tx = make_optimizer(lr=args.lr)
-    state, tx = init_train_state(args.seed, cfg, tx, device=device)
+    state, tx = init_train_state(args.seed, cfg, tx, mesh=mesh)
     run = Run(state)
     if args.resume and latest_step(args.ckpt_dir) is not None:
         t0 = time.perf_counter()
-        state = restore_checkpoint(args.ckpt_dir, state)
+        state = restore_checkpoint(args.ckpt_dir, state, mesh=mesh, param_specs=clip_param_specs())
         run.restore_s = time.perf_counter() - t0
         logger.info("resumed from step %d", state.step)
-    step_fn = make_train_step(cfg, tx, dtype=dtype)
+    step_fn = make_train_step(cfg, tx, mesh=mesh, dtype=dtype)
     next_batch = batch_source(args, cfg, device)
     if next_batch is None:
         run.rc = 2

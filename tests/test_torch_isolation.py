@@ -89,6 +89,8 @@ def test_every_module_imports_without_jax_or_imatch_tpu():
         "parallel.train",
         "parallel.checkpoint",
         "scripts.train_clip",
+        "parallel.sharding",
+        "ops.collectives",
     ):
         assert f"imatch_tpu_torch.{name}" in names, name
 

@@ -918,3 +918,94 @@ def test_train_step_on_card_takes_mha_xla(cuda):
     st, loss = make_train_step(TINY, tx, dtype=torch.bfloat16)(st, px, tok)
     assert torch.isfinite(loss) and st.step == 1
     assert flash_mha.launches == before
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize(
+    "b,s,h,dh",
+    [
+        (2, 729, 8, 72),  # the Moondream vision tower at mp = 2: 16 / 2 heads a shard
+        (4, 257, 8, 64),  # the LongCLIP-L image tower at mp = 2
+        (4, 248, 6, 64),  # the LongCLIP text tower at mp = 2 (causal there)
+    ],
+)
+def test_flash_attention_split_head_shapes(cuda, b, s, h, dh, causal):
+    """K2 at a tensor-parallel shard's head count, read in place from the
+    shard's fused (B, S, 3, H / mp, Dh) projection, bf16, against the
+    plain version."""
+    g = torch.Generator(device=cuda).manual_seed(b * s + h)
+    qkv = torch.randn((b, s, 3, h, dh), generator=g, device=cuda).bfloat16()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    before = flash_mha.launches
+    out = flash_mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_mha.launches == before + 1 and out.shape == (b, h, s, dh)
+    _assert_bf16_close(out, flash_mha_plain(q.float(), k.float(), v.float(), causal=causal))
+
+
+def test_tensor_parallel_towers_on_card(cuda):
+    """The tiny CLIP towers over 2 logical model shards of the card (K2 at
+    half the heads, one launch a shard a layer) and the Moondream prefill
+    over 2, bf16, against one device's within 2 bf16 ulps."""
+    from imatch_tpu_torch.models.clip.model import encode_image, encode_text
+    from imatch_tpu_torch.models.moondream.configs import TINY_MD
+    from imatch_tpu_torch.models.moondream.generate import prefill
+    from imatch_tpu_torch.models.moondream.model import encode_image_features
+    from imatch_tpu_torch.models.moondream.model import init_random as md_init
+    from imatch_tpu_torch.parallel.sharding import shard_model
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    one = init_random(TINY, device=cuda, dtype=torch.bfloat16, generator=gen)
+    tp = shard_model(one, [cuda, cuda])
+    px = torch.randn((4, 32, 32, 3), generator=gen, device=cuda)
+    tok = torch.randint(0, TINY.text.eos_token_id, (4, TINY.text.max_positions), generator=gen, device=cuda)
+    tok[:, 9:] = TINY.text.eos_token_id
+    before = flash_mha.launches
+    got = encode_image(tp, px), encode_text(tp, tok)
+    layers = TINY.vision.num_layers + TINY.text.num_layers
+    assert flash_mha.launches == before + 2 * layers
+    want = encode_image(one, px), encode_text(one, tok)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=BF16_TOL, atol=BF16_TOL)
+
+    md = md_init(TINY_MD, seed=0, device=cuda, dtype=torch.bfloat16)
+    md_tp = shard_model(md, [cuda, cuda])
+    px = torch.randn((2, 28, 28, 3), generator=gen, device=cuda)
+    tok = torch.randint(0, 256, (2, 5), generator=gen, device=cuda)
+    logits = [prefill(m, encode_image_features(m, px), tok)[0] for m in (md_tp, md)]
+    torch.testing.assert_close(logits[0], logits[1], rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_data_and_tensor_parallel_on_card(cuda):
+    """A (2, 2) grid of the card: the tiny fp32 train step equals one
+    device's loss within rtol 2e-5; the embedder over 2 logical data
+    shards equals one device's (bf16, and W8A8) within 2 bf16 ulps, its
+    fused step's ids equal."""
+    import numpy as np
+
+    from imatch_tpu_torch.parallel.mesh import make_mesh
+    from imatch_tpu_torch.parallel.train import init_train_state, make_train_step
+    from imatch_tpu_torch.pipeline.embedder import ClipEmbedder
+
+    g = torch.Generator().manual_seed(0)
+    px = torch.randn((8, 32, 32, 3), generator=g)
+    tok = torch.randint(0, TINY.text.eos_token_id, (8, TINY.text.max_positions), generator=g)
+    tok[:, 9:] = TINY.text.eos_token_id
+    grid = make_mesh(2, [cuda] * 4)
+    losses = []
+    for mesh in (None, grid):
+        st, tx = init_train_state(0, TINY, mesh=mesh, device=cuda)
+        st, loss = make_train_step(TINY, tx, mesh=mesh)(st, px, tok)
+        losses.append(float(loss))
+    assert abs(losses[1] - losses[0]) <= 2e-5 * abs(losses[0])
+
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 256, (48, 64, 3), np.uint8) for _ in range(13)]
+    for quant in ("", "int8"):
+        e1 = ClipEmbedder(config="tiny", device=cuda, quant=quant)
+        e2 = ClipEmbedder(config="tiny", mesh=[cuda, cuda], quant=quant)
+        ids1, emb1 = e1.ids_and_embed_images(frames)
+        ids2, emb2 = e2.ids_and_embed_images(frames)
+        assert ids1 == ids2
+        np.testing.assert_allclose(emb2, emb1, rtol=BF16_TOL, atol=BF16_TOL)
+        np.testing.assert_allclose(e2.embed_texts(["a red drill"]), e1.embed_texts(["a red drill"]), rtol=BF16_TOL, atol=BF16_TOL)

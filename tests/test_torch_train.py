@@ -40,7 +40,8 @@ from imatch_tpu_torch.models.clip.bridge import named_to_numpy, params_to_numpy
 from imatch_tpu_torch.models.clip.configs import TINY
 from imatch_tpu_torch.models.clip.model import clip_forward, encode_image
 from imatch_tpu_torch.ops import attention
-from imatch_tpu_torch.parallel import TrainState, clip_loss, init_train_state, make_train_step
+from imatch_tpu_torch.parallel import TrainState, clip_loss, init_train_state, make_mesh, make_train_step
+from imatch_tpu_torch.parallel.sharding import gather_named
 from imatch_tpu_torch.parallel.train import (
     B1,
     MAX_LOGIT_SCALE,
@@ -284,10 +285,21 @@ def test_init_from_seed_and_mesh(batch):
     for (n, p), (_, q) in zip(a.params.named_parameters(), b.params.named_parameters()):
         assert p.dtype == torch.float32 and p.requires_grad and torch.equal(p, q), n
     assert all(float(m.abs().max()) == 0 for m in a.opt_state.mu.values())
-    with pytest.raises(NotImplementedError, match="one device"):
-        init_train_state(7, TINY, mesh=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="one device"):
-        make_train_step(TINY, make_optimizer(), mesh=["cpu"] * 4)
+    # a device list is the grid's data axis: the same masters, unsharded;
+    # a step over 4 data shards splits the batch and equals one device's
+    c, tx = init_train_state(7, TINY, mesh=["cpu", "cpu"])
+    assert not len(c.params.peers)
+    for (n, p), (_, q) in zip(a.params.named_parameters(), c.params.named_parameters()):
+        assert torch.equal(p, q), n
+    _, want = make_train_step(TINY, tx)(a, *batch)
+    _, got = make_train_step(TINY, tx, mesh=["cpu"] * 4)(c, *batch)
+    np.testing.assert_allclose(float(got), float(want), rtol=2e-5)
+    # model_parallel 2: shard 0 and one peer holding the split slices
+    d, _ = init_train_state(7, TINY, mesh=make_mesh(2, ["cpu", "cpu"]))
+    assert len(d.params.peers) == 1
+    full = gather_named(dict(d.params.named_parameters()), d.params)
+    b_named = dict(b.params.named_parameters())
+    assert set(full) == set(b_named) and all(torch.equal(full[n], b_named[n]) for n in full)
 
 
 def test_wider_tree_refused(tree):

@@ -4,7 +4,9 @@
   ``--device cpu``: ``done at step 3``, then ``--resume``: ``resumed from
   step 3`` and ``done at step 5``.
 - Without a card and without a device choice the script raises and writes
-  no checkpoint directory; ``--mp 2`` raises (one device only).
+  no checkpoint directory; ``--mp 2`` over one device raises (the model
+  axis must divide the grid's devices) and writes nothing
+  (tests/test_torch_parallel.py trains at ``--mp 2`` over four).
 - Library mode: pairs read from a port store's records and their processed
   images through the loader, trained for one step; fewer than two usable
   records exit with status 2.
@@ -67,7 +69,7 @@ def test_no_card_and_no_device_raises_and_writes_nothing(no_cuda, tmp_path):
 
 
 def test_mp_above_one_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="--mp 2"):
+    with pytest.raises(ValueError, match="not divisible by model_parallel=2"):
         train_clip.main(
             ["--config", "tiny", "--mp", "2", "--synthetic", "8", "--device", "cpu",
              "--ckpt-dir", str(tmp_path / "ck")]
