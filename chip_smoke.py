@@ -73,15 +73,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    the fused chunk's stages timed (W8A8 beside the bf16 tower at B = 64);
    then the W8A8 tower against the fp32 tower on the card.
 8. The third slice end to end: the app at longclip-l14-248 over a store of
-   2^20 rows, once with IMATCH_SCORE_DTYPE=int8 and once with
+   2^18 rows (2^20 until the scale phase came), once with IMATCH_SCORE_DTYPE=int8 and once with
    IMATCH_INDEX_ENGINE=tilemax-host; uploads that patch the built index,
    then text, image and multimodal searches over HTTP whose ids must equal
    a full fp32 brute force and the bf16 engine on the same rows, with the
    K1 and K1-int8 launch counts read around them; 64 deletes and 64
    updates (patched, or on the host tier one rebuild for the updates)
    checked as in phase 6 with K1-int8; then an IMATCH_INDEX_ENGINE=auto
-   store of 2^18 rows whose 1 GiB device budget makes its build escalate
-   to tilemax-host.
+   store of 2^16 rows whose 256 MiB device budget makes its build
+   escalate to tilemax-host.
 8b. The fourth slice end to end: the Moondream captioner and the yes/no
    filters at moondream2 (full width and depth, seeded random weights,
    bf16; IMATCH_CAPTIONER=moondream, a synthetic GPT-2-layout vocab of
@@ -168,7 +168,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    pruned from the WAL that ``--reembed`` embeds on the card (K2), the
    migrated directory loaded on the card answering 16 queries with the
    brute force's ids; launches held as in (b). (d) stress_sharded_store at
-   100_000 x 256 over 8 logical shards of cuda:0: every checkpoint equal to
+   50_000 x 256 (the script's default 100_000 until the scale phase came) over 8 logical
+   shards of cuda:0: every checkpoint equal to
    its numpy oracle at a full probe, with its time and peak memory.
 8g. The twelfth slice, CLIP contrastive training (the step `train`),
    after 8d. (a) imatch_tpu_torch/scripts/train_clip.py through its
@@ -202,9 +203,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    at LongCLIP, bf16 and W8A8, against one device on 24 frames: cosine,
    top-10 ids in a store equal for every frame, K2 (and K3/K4) launches
    a data shard at its 16 frames, the first launch of each (K3 at each
-   width) captured and held against its plain version. (f) One bf16 step
-   at B = 32 traced on one device and on (2, 2): device busy ms,
-   operations, idle share against (c)'s median step.
+   width) captured and held against its plain version. (f) One more bf16
+   step of (c)'s two states at B = 32 traced, on one device and on (2, 2):
+   device busy ms, operations, idle share against (c)'s median step.
+8i. The fourteenth slice, the pipeline, sequence and process axes (the
+   step `scale`), after 8h, on logical shards of cuda:0. (a) Ring
+   attention, causal bf16: LongCLIP-L/14-248's text attention (32, 12,
+   248, 64) at P = 4 and 8 against K2 on the whole sequence, the fp32
+   plain version and ``mha_xla``, and (1, 16, 16384, 64) at P = 8 against
+   K2; each timed with K2 beside it, and its peak memory beside the (B, H,
+   S, S) fp32 logits it never holds. (b) GPipe over the 24 encoder layers
+   of LongCLIP-L's image tower, bf16, B = 32, at (P, M) = (2, 4) and (4,
+   8) against the unpipelined encoder: per-row cosine, K2 launched 24 x M
+   times (bubble ticks skipped), the first launch at each microbatch
+   shape held against its plain version, ms beside the unpipelined
+   tower's and the bubble fraction. (c) The multi-process dryrun
+   (imatch_tpu_torch/scripts/dryrun_multiprocess.py) in 2 processes x 2
+   shards of the card joined by gloo, 2^18 x 768 unit rows, 16 queries, k
+   10: exact against float64 numpy in each, K1 launched in each; one
+   query's ms and the all-gather's. (d) dryrun_multichip over 8 logical
+   shards of the card. (c) starts first and (d) runs while its workers
+   start (its log says whether their timings began after (d) ended);
+   (a) and (b) run after both, on a quiet card.
 9. A cut-depth vit-b32 tower on the card against the same weights on the
    CPU.
 10. The two experiment entry points, python -m imatch_tpu_torch.scripts.
@@ -2383,11 +2403,14 @@ TIERS = {
     "tilemax-host": ({"IMATCH_INDEX_ENGINE": "tilemax-host"}, "tilemax-host"),
 }
 N_TIER_UPLOADS = 4
-# the auto store's rows and device budget: a 2^18 x 768 tilemax build (bf16
-# scores + the fp32 copy, 1.2 GB) outgrows half of 1 GiB and escalates
-# (2^20 rows and 4 GiB until the training phase came: the run's time limit)
-AUTO_ROWS = 1 << 18
-AUTO_BUDGET = 1 << 30
+# the tier apps' store rows (2^20 until the scale phase came: the run's time limit)
+TIER_ROWS = 1 << 18
+# the auto store's rows and device budget: a 2^16 x 768 tilemax build (bf16
+# scores + the fp32 copy, 302 MB) outgrows half of 256 MiB and escalates
+# (2^20 rows and 4 GiB until the training phase came, 2^18 and 1 GiB until
+# the scale phase: the run's time limit)
+AUTO_ROWS = 1 << 16
+AUTO_BUDGET = 1 << 28
 
 
 @contextlib.contextmanager
@@ -2425,7 +2448,7 @@ def _references(store, queries, device, k=10):
     )
 
 
-def phase_tiers(embedder, device="cuda", store_rows=STORE_ROWS) -> dict:
+def phase_tiers(embedder, device="cuda", store_rows=TIER_ROWS) -> dict:
     """The int8 score tier and the tilemax-host tier, each an app over
     HTTP on ``embedder`` with a store of ``store_rows`` rows; then an auto
     store that escalates. Returns the K1 and K1-int8 launch counts of each
@@ -4001,7 +4024,9 @@ OPS_INGEST = 64  # frames ingest_folder reads from disk
 OPS_DECODE = 64  # frames a decode timing takes, PNG and JPEG each
 OPS_MIGRATE_ROWS = 16384  # live Chroma rows with WAL vectors
 OPS_MIGRATE_PRUNED = 64  # live rows pruned from the WAL: --reembed embeds them
-OPS_STRESS = (100_000, 256)  # stress_sharded_store's default rows and width
+# stress_sharded_store's rows (its default 100_000 until the scale phase
+# came: the run's time limit) and its default width
+OPS_STRESS = (50_000, 256)
 
 
 def gray16_frame(h: int = 48, w: int = 64):
@@ -4740,7 +4765,7 @@ def parallel_train_check(device, config=SLICE_CONFIG) -> tuple:
     g = torch.Generator(device=device).manual_seed(21)
     eq_batch = random_pairs(cfg, PARALLEL_EQ_BATCH, g, device)
     batches = [random_pairs(cfg, PARALLEL_BATCH, g, device) for _ in range(PARALLEL_STEPS)]
-    out, snap = {}, None
+    out, snap, kept = {}, None, {}
     for name, mesh in (("one_device", None), ("grid", grid)):
         _sync(device)
         torch.cuda.reset_peak_memory_stats()
@@ -4774,6 +4799,7 @@ def parallel_train_check(device, config=SLICE_CONFIG) -> tuple:
             model_shards=1 + len(state.params.peers),
         )
         out[name] = row
+        kept[name] = [state, step]  # (f) traces one more step of each
         del state, named
         gc.collect()
         torch.cuda.empty_cache()
@@ -4781,7 +4807,7 @@ def parallel_train_check(device, config=SLICE_CONFIG) -> tuple:
     out.update(config=config, grid_shape=list(PARALLEL_GRID), rtol=PARALLEL_LOSS_RTOL, loss_rel_diff=abs(two - one) / abs(one))
     losses = out["one_device"]["bf16_losses"] + out["grid"]["bf16_losses"] + [one, two]
     ok = out["loss_rel_diff"] <= PARALLEL_LOSS_RTOL and all(math.isfinite(x) for x in losses)
-    return out, ok
+    return out, ok, kept
 
 
 def k2_held(q, k, v, causal=False) -> tuple:
@@ -4996,27 +5022,22 @@ def parallel_embed_check(device, config=SLICE_CONFIG) -> tuple:
     return out, ok, launches
 
 
-def parallel_trace_check(device, train, config=SLICE_CONFIG) -> dict:
+def parallel_trace_check(device, train, kept, config=SLICE_CONFIG) -> dict:
     """(f) Where a bf16 step's time goes on one device and on the
-    PARALLEL_GRID grid: one step at PARALLEL_BATCH traced
-    (``device_busy``), its device busy ms, device operations, the idle
-    share against (c)'s median step ms and the five kernels that take the
-    most time. Last in the phase: a profiler session slows the host's
-    later launches."""
+    PARALLEL_GRID grid: one more step at PARALLEL_BATCH of (c)'s states
+    (``kept``: each state and its bf16 step) traced (``device_busy``), its
+    device busy ms, device operations, the idle share against (c)'s median
+    step ms and the five kernels that take the most time. Last in the
+    phase: a profiler session slows the host's later launches."""
     import torch
 
     from imatch_tpu_torch.models.clip.configs import get_config
-    from imatch_tpu_torch.parallel.mesh import make_mesh
-    from imatch_tpu_torch.parallel.train import init_train_state, make_train_step
 
     cfg = get_config(config)
-    dp, mp = PARALLEL_GRID
     px, tok = random_pairs(cfg, PARALLEL_BATCH, torch.Generator(device=device).manual_seed(22), device)
     out = {}
-    for name, mesh in (("one_device", None), ("grid", make_mesh(mp, [device] * (dp * mp)))):
-        state, tx = init_train_state(0, cfg, mesh=mesh, device=device)
-        holder = [state, make_train_step(cfg, tx, mesh=mesh, dtype=torch.bfloat16)]
-        del state
+    for name in ("one_device", "grid"):
+        holder = kept.pop(name)
 
         def one_step():
             holder[0], _ = holder[1](holder[0], px, tok)
@@ -5037,18 +5058,28 @@ def phase_parallel(device="cuda") -> dict:
     import torch
 
     t0 = time.perf_counter()
+    seconds = {}
+
+    def mark(part):
+        seconds[part] = round(time.perf_counter() - t0 - sum(seconds.values()), 1)
+
     k2_rows = [k2_case(shape, causal, torch.bfloat16) for shape, causal in K2_TP_CASES]
-    train, train_ok = parallel_train_check(device)
+    mark("a")
+    train, train_ok, kept = parallel_train_check(device)
     log("parallel train: " + json.dumps(train))
+    mark("b, c")
     md, md_ok = parallel_md_check(device)
     log("parallel moondream: " + json.dumps(md))
     gc.collect()
     torch.cuda.empty_cache()
+    mark("d")
     embed, embed_ok, launches = parallel_embed_check(device)
     log("parallel embedder: " + json.dumps(embed))
-    log("parallel trace: " + json.dumps(parallel_trace_check(device, train)))
-    log(f"phase 8h: {time.perf_counter() - t0:.1f} s; {torch.cuda.device_count()} card(s) visible, "
-        "so no run over several real cards took place")
+    mark("e")
+    log("parallel trace: " + json.dumps(parallel_trace_check(device, train, kept)))
+    mark("f")
+    log(f"phase 8h: {time.perf_counter() - t0:.1f} s (by part: {seconds}); {torch.cuda.device_count()} "
+        "card(s) visible, so no run over several real cards took place")
     failed = [
         n
         for n, good in (
@@ -5062,6 +5093,241 @@ def phase_parallel(device="cuda") -> dict:
     if failed:
         raise AssertionError(f"phase 8h failed: {failed}")
     return {"k2_rows": k2_rows, "launches": {**launches, "K2_tp": md["k2_launches"]}}
+
+
+# -- phase 8i: the pipeline, sequence and process axes ------------------------
+
+SCALE_RING_CASES = [((32, 12, 248, 64), (4, 8)), ((1, 16, 16384, 64), (8,))]  # (B, H, S, Dh), ring sizes
+SCALE_PIPE = [(2, 4), (4, 8)]  # (stages, microbatches)
+SCALE_PIPE_BATCH = 32
+SCALE_PIPE_MIN_COSINE = 0.9999  # per (image, token) row, pipelined against the unpipelined encoder
+SCALE_MP = {"procs": 2, "local-devices": 2, "rows": 1 << 18, "dim": 768, "queries": 16, "k": 10}
+SCALE_MP_TIMEOUT = 300
+SCALE_MULTICHIP_SHARDS = 8
+
+
+def _within(got, ref, scale=1.0) -> tuple:
+    """(largest error, within ``scale`` times the bf16 bar of ``ref``)."""
+    err = (got.float() - ref.float()).abs()
+    return float(err.max()), bool((err <= scale * (BF16_ATOL + BF16_RTOL * ref.float().abs())).all())
+
+
+def ring_check(device) -> tuple:
+    """(a) Causal bf16 ring attention over P logical shards of the card.
+    At SCALE_RING_CASES' first shape: against the fp32 plain version (the
+    bf16 bar), K2 on the whole sequence (the bar: both round the same fp32
+    function to bf16) and ``mha_xla`` (twice the bar: its logits and
+    probabilities are rounded to bf16). At the long shape, whose fp32
+    logits would not be held, against K2. Each case timed (CUDA events),
+    K2 beside it, and the ring's peak memory above its inputs."""
+    import torch
+
+    from imatch_tpu_torch.ops.attention import mha_xla
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha, flash_mha_plain
+    from imatch_tpu_torch.parallel import make_mesh, ring_attention
+
+    rows, ok = [], True
+    for shape, sizes in SCALE_RING_CASES:
+        g = torch.Generator(device=device).manual_seed(41)
+        q, k, v = (torch.randn(shape, generator=g, device=device).to(torch.bfloat16) for _ in range(3))
+        k2 = flash_mha(q, k, v, causal=True)
+        exact = flash_mha_plain(q.float(), k.float(), v.float(), causal=True) if shape[2] <= 1024 else None
+        k2_ms = time_ms(lambda: flash_mha(q, k, v, causal=True), iters=5)
+        logits_gb = shape[0] * shape[1] * shape[2] ** 2 * 4 / 1e9
+        for p in sizes:
+            mesh = make_mesh(p, [device] * p)
+
+            def ring():
+                return ring_attention(q, k, v, mesh=mesh, axis="model", causal=True)
+
+            _sync(device)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            got = ring()
+            _sync(device)
+            peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+            row = {"shape": list(shape), "ring_size": p, "causal": True, "dtype": "bfloat16"}
+            row["max_abs_err_vs_k2"], good = _within(got, k2)
+            if exact is not None:
+                row["max_abs_err_vs_fp32"], g1 = _within(got, exact)
+                row["max_abs_err_vs_mha_xla"], g2 = _within(got, mha_xla(q, k, v, causal=True), scale=2.0)
+                good = good and g1 and g2
+            row.update(
+                ring_ms=time_ms(ring, iters=3, warmup=1),
+                k2_whole_ms=k2_ms,
+                peak_memory_gb=peak_gb,
+                full_logits_fp32_gb=logits_gb,
+                finite=bool(torch.isfinite(got).all()),
+                ok=good and bool(torch.isfinite(got).all()),
+            )
+            ok = ok and row["ok"]
+            rows.append(row)
+            del got
+        del q, k, v, k2, exact
+        torch.cuda.empty_cache()
+    return rows, ok
+
+
+def gpipe_check(device, config=SLICE_CONFIG) -> tuple:
+    """(b) The image tower's encoder layers of ``config`` (seeded bf16
+    weights), no grad, on SCALE_PIPE_BATCH random rows: unpipelined, then
+    ``gpipe_scan`` over each SCALE_PIPE (stages, microbatches) on logical
+    shards of the card. K2's launches in each pipelined run are counted
+    (the main path's) and must be layers x M; the first launch at each
+    microbatch shape is captured and held against its plain version."""
+    import torch
+
+    from imatch_tpu_torch.models.clip.configs import get_config
+    from imatch_tpu_torch.models.clip.model import init_random
+    from imatch_tpu_torch.ops import attention
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
+    from imatch_tpu_torch.parallel import gpipe_scan, make_mesh
+
+    cfg = get_config(config)
+    vc = cfg.vision
+    g = torch.Generator(device=device).manual_seed(43)
+    encoder = init_random(cfg, device=device, dtype=torch.bfloat16, generator=g).vision.encoder
+    x = torch.randn((SCALE_PIPE_BATCH, vc.seq_len, vc.hidden_size), generator=g, device=device).to(torch.bfloat16)
+
+    def body(h, layer):
+        return layer(h, False), None
+
+    out, ok, launches = {"config": config, "layers": vc.num_layers, "batch": SCALE_PIPE_BATCH}, True, 0
+    with torch.no_grad():
+        ref, out["unpipelined_ms"] = _timed(lambda: encoder(x, causal=False), device)
+        served, captured = attention.flash_mha, {}
+
+        def watch(q, k, v, **kw):
+            captured.setdefault(tuple(q.shape), (q.clone(), k.clone(), v.clone(), kw))
+            return served(q, k, v, **kw)
+
+        for p, m in SCALE_PIPE:
+            mesh = make_mesh(p, [device] * p)
+
+            def pipe():
+                return gpipe_scan(body, x, encoder.layers, mesh=mesh, axis="model", microbatches=m)
+
+            attention.flash_mha = watch
+            try:
+                flash_mha.launches = 0
+                got = pipe()
+                _sync(device)
+                n = flash_mha.launches
+            finally:
+                attention.flash_mha = served
+            launches += n
+            cos = torch.nn.functional.cosine_similarity(got.float().flatten(0, 1), ref.float().flatten(0, 1), dim=-1)
+            shape = (SCALE_PIPE_BATCH // m, vc.num_heads, vc.seq_len, vc.head_dim)
+            q, k, v, kw = captured[shape]
+            err, held = k2_held(q, k, v, **kw)
+            row = {
+                "stages": p,
+                "microbatches": m,
+                "k2_launches": n,
+                "k2_launches_want": vc.num_layers * m,
+                "k2_shape": list(shape),
+                "k2_max_abs_err_on_path_inputs": err,
+                "min_cosine": float(cos.min()),
+                "max_abs_diff": float((got.float() - ref.float()).abs().max()),
+                "ms": _timed(pipe, device)[1],
+                "bubble_fraction": (p - 1) / (m + p - 1),
+            }
+            row["ok"] = n == vc.num_layers * m and held and row["min_cosine"] >= SCALE_PIPE_MIN_COSINE
+            ok = ok and row["ok"]
+            out[f"p{p}_m{m}"] = row
+            del got
+    del encoder, x, ref
+    return out, ok, launches
+
+
+def multiprocess_start():
+    """(c) The port's multi-process dryrun on the card, started: its
+    launcher and workers load the kernels phase 2 built. The launcher
+    stops its workers at SCALE_MP_TIMEOUT."""
+    cmd = [sys.executable, "-m", "imatch_tpu_torch.scripts.dryrun_multiprocess", "--device", "cuda"]
+    cmd += [a for key, val in SCALE_MP.items() for a in ((f"-{key}" if key == "k" else f"--{key}"), str(val))]
+    cmd += ["--timeout", str(SCALE_MP_TIMEOUT)]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def multiprocess_finish(proc) -> tuple:
+    """(c) Its output read: each worker's JSON line, and whether it passed
+    (rc 0, the OK line, K1 launched in each)."""
+    try:
+        stdout, stderr = proc.communicate(timeout=SCALE_MP_TIMEOUT + 60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    workers = {}
+    for line in stdout.splitlines():
+        if line.startswith("[proc ") and "] {" in line:
+            head, body = line.split("] ", 1)
+            workers[int(head[len("[proc ") :])] = json.loads(body)
+    ok = (
+        proc.returncode == 0
+        and "MULTIPROCESS DRYRUN OK" in stdout
+        and sorted(workers) == list(range(SCALE_MP["procs"]))
+        and all(w["k1_launches"] + w["k1_mma_launches"] > 0 for w in workers.values())
+    )
+    if not ok:
+        log(stdout[-4000:] + stderr[-4000:])
+    return {"rc": proc.returncode, "config": SCALE_MP, "workers": workers}, ok
+
+
+def phase_scale(device="cuda") -> dict:
+    """Phase 8i: (c) the multi-process dryrun started, (d) dryrun_multichip
+    over SCALE_MULTICHIP_SHARDS logical shards of the card while (c)'s
+    workers start (its K1 and K2 launches counted; (c)'s log says whether
+    its timings began after (d) ended), (c) read, then (a) ``ring_check``
+    and (b) ``gpipe_check`` on a quiet card. Each part raises on failure;
+    none is caught."""
+    import torch
+
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
+    from imatch_tpu_torch.ops.kernels.topk import tile_max
+    from imatch_tpu_torch.scripts._common import card
+    from imatch_tpu_torch.scripts.dryrun_multichip import dryrun_multichip
+
+    t0 = time.perf_counter()
+    log(f"phase 8i on {card(torch.device(device))}")
+    proc = multiprocess_start()
+    try:
+        before = (tile_max.launches, tile_max.mma_launches, flash_mha.launches)
+        chip = dryrun_multichip(SCALE_MULTICHIP_SHARDS, device)
+        _sync(device)
+        chip_ended = time.time()
+        chip["seconds"] = time.perf_counter() - t0
+        k1, k1_mma, k2 = (a - b for a, b in zip((tile_max.launches, tile_max.mma_launches, flash_mha.launches), before))
+    finally:
+        mp, mp_ok = multiprocess_finish(proc)
+    chip.update(k1_launches=k1, k1_mma_launches=k1_mma, k2_launches=k2)
+    log("scale multichip: " + json.dumps(chip))
+    if k1 + k1_mma == 0 or k2 == 0:
+        raise AssertionError("phase 8i (d) failed: dryrun_multichip launched no K1 or no K2")
+    mp["seconds"] = time.perf_counter() - t0
+    mp["timings_after_multichip"] = all(w.get("timing_started_at", 0) > chip_ended for w in mp["workers"].values())
+    log("scale multiprocess: " + json.dumps(mp))
+    if not mp_ok:
+        raise AssertionError("phase 8i (c) failed: the multi-process dryrun")
+    ring, ring_ok = ring_check(device)
+    log("scale ring: " + json.dumps(ring))
+    if not ring_ok:
+        raise AssertionError("phase 8i (a) failed: ring attention")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe, pipe_ok, k2_pipe = gpipe_check(device)
+    log("scale gpipe: " + json.dumps(pipe))
+    if not pipe_ok:
+        raise AssertionError("phase 8i (b) failed: gpipe")
+    log(f"phase 8i: {time.perf_counter() - t0:.1f} s; {torch.cuda.device_count()} card(s) visible")
+    workers = mp["workers"].values()
+    return {
+        "K1": k1 + sum(w["k1_launches"] for w in workers),
+        "K1_mma": k1_mma + sum(w["k1_mma_launches"] for w in workers),
+        "K2": k2_pipe + k2,
+    }
 
 
 def phase_reference() -> None:
@@ -5532,6 +5798,10 @@ def step_parallel(ctx) -> None:
     _add_launches(ctx, **out["launches"])
 
 
+def step_scale(ctx) -> None:
+    _add_launches(ctx, **phase_scale())
+
+
 def step_scripts(ctx) -> None:
     launches, ctx["script_lines"] = phase_scripts()
     _add_launches(ctx, **launches)
@@ -5556,6 +5826,7 @@ PHASES = {
     "md_int8": step_md_int8,
     "train": lambda ctx: phase_train(),
     "parallel": step_parallel,
+    "scale": step_scale,
     "reference": lambda ctx: phase_reference(),
     "scripts": step_scripts,
     "device": lambda ctx: phase_device(ctx["rows"]),

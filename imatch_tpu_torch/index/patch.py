@@ -51,7 +51,7 @@ build's bit for bit. ``tilemax-host`` brings them to the host first (JAX
 - ``sharded`` (``ShardedCorpus``, parallel/dist_search.py): append,
   delete, update. Each global slot maps to (shard, local slot), and each
   shard's rows go through the ``DeviceCorpus`` patch above on the shard's
-  device.
+  device (over a grid that spans processes, only this process's shards).
 - ``ivf`` (``IVFIndex``): append and delete. New rows are assigned
   against the EXISTING centroids (the FAISS add discipline) and written
   into free member-table slots (``_insert_positions``: their cluster's
@@ -178,10 +178,12 @@ def _by_shard(slots: np.ndarray, shard_rows: int):
 
 def _sharded_rows(state, slots: np.ndarray, rows, in_place: bool):
     """A ``ShardedCorpus`` with rows written at global ``slots``: each
-    shard's through ``_dense_rows`` on its device."""
+    shard's through ``_dense_rows`` on its device (a shard another process
+    owns, None here, is that process's to patch)."""
     shards = list(state.shards)
     for s, sel, local in _by_shard(slots, state.rows):
-        shards[s] = _dense_rows(shards[s], local, _take(rows, sel), in_place)
+        if shards[s] is not None:
+            shards[s] = _dense_rows(shards[s], local, _take(rows, sel), in_place)
     return state._replace(shards=tuple(shards))
 
 
@@ -309,7 +311,8 @@ def delete_rows(dc, slots: np.ndarray, *, in_place: bool) -> Optional[Tuple[str,
     if tag in ("sharded", "ivf-sharded"):
         shards = list(state.shards)
         for s, _, local in _by_shard(slots, state.rows):
-            shards[s] = shards[s]._replace(valid=_flag(shards[s].valid, local, False, in_place))
+            if shards[s] is not None:  # None: another process's shard
+                shards[s] = shards[s]._replace(valid=_flag(shards[s].valid, local, False, in_place))
         return tag, state._replace(shards=tuple(shards))
     return None
 

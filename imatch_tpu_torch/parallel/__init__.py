@@ -1,8 +1,16 @@
 """Multi-device paths and training: the (data, model) device grid, the
 Megatron partition specs and their placement, the contrastive training
-step over the grid, checkpoints, and the row-sharded index engines over a
-device list (one process; parallel/mesh.py)."""
+step over the grid, checkpoints, the row-sharded index engines over a
+device list (parallel/mesh.py), GPipe over stacked layers, ring attention
+over the sequence, and the grid across processes (parallel/
+distributed.py)."""
 
+from imatch_tpu_torch.parallel.distributed import (
+    initialize,
+    process_count,
+    process_index,
+    shutdown,
+)
 from imatch_tpu_torch.parallel.mesh import make_mesh, mesh_shape_for
 from imatch_tpu_torch.parallel.sharding import (
     clip_param_specs,
@@ -21,6 +29,8 @@ from imatch_tpu_torch.parallel.dist_search import (
     sharded_cosine_topk,
     sharded_topk_prepared,
 )
+from imatch_tpu_torch.parallel.pipeline import gpipe_scan
+from imatch_tpu_torch.parallel.ring_attention import ring_attention
 from imatch_tpu_torch.parallel.train import (
     TrainState,
     clip_loss,
@@ -42,6 +52,12 @@ __all__ = [
     "sharded_cosine_topk",
     "sharded_ivf_topk",
     "sharded_topk_prepared",
+    "gpipe_scan",
+    "ring_attention",
+    "initialize",
+    "process_count",
+    "process_index",
+    "shutdown",
     "TrainState",
     "clip_loss",
     "make_train_step",

@@ -41,7 +41,8 @@ from imatch_tpu_torch.parallel.sharding import (
     model_shards,
     shard_named,
 )
-from imatch_tpu_torch.parallel.train import AdamState, TrainState, as_grid
+from imatch_tpu_torch.parallel.mesh import as_grid
+from imatch_tpu_torch.parallel.train import AdamState, TrainState
 
 ADAM = "opt_state/1/0"  # optax's chain: index 1 is adamw, its 0 scale_by_adam
 

@@ -14,6 +14,11 @@ its rows, and the answers equal the exact ``sharded`` engine's.
 Shards are padded to one cluster count and member width, as JAX stacks
 them: padded clusters carry ``nonempty`` False (so do empty ones) and
 never win a probe slot. Member tables hold shard-LOCAL row ids.
+
+A grid that spans processes (parallel/distributed.py) is refused with a
+ValueError: this engine keeps every shard's host state in one process and
+has no exchange of candidates, and it must never answer from the local
+shards alone. The exact ``sharded`` engine serves such a grid.
 """
 
 from __future__ import annotations
@@ -90,6 +95,8 @@ def prepare_sharded_ivf_incremental(
 
     Returns ``(state, host_state)``; the host state is the store's and
     comes back as the next call's ``snap``."""
+    if getattr(mesh, "spans_processes", False):
+        raise ValueError(f"ivf-sharded does not run over a grid that spans processes: {mesh!r}; use sharded")
     corpus = np.asarray(corpus)
     valid = np.asarray(valid, bool)
     dp = len(mesh)

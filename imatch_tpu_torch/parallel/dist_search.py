@@ -20,6 +20,14 @@ Each shard holds whole tiles (rows are padded to a multiple of
 and each row's final score comes from ``search.final_topk``, whose bits
 do not depend on the batch: the store's ``sharded`` engine answers as
 ``tilemax`` does, bit for bit, at every P.
+
+Over a grid that spans processes (parallel/distributed.py) a process
+prepares only the shards it owns (the others are None in its
+``ShardedCorpus``), runs K1 on them, and all-gathers its fixed-shape
+(Q, k x local shards) candidates and their global ids over the process
+group before the merge, so every process returns the same answer. Every
+process must make the same calls in the same order (the store's host
+state is replicated in each).
 """
 
 from __future__ import annotations
@@ -31,12 +39,14 @@ import numpy as np
 import torch
 
 from imatch_tpu_torch.index.search import DeviceCorpus, prepare_device_corpus, stable_top, tilemax_topk
+from imatch_tpu_torch.parallel import distributed
 from imatch_tpu_torch.parallel.mesh import Mesh
 
 
 class ShardedCorpus(NamedTuple):
     """Query-ready sharded state: one ``DeviceCorpus`` a shard, on its own
-    device, each of ``rows`` rows (whole tiles)."""
+    device, each of ``rows`` rows (whole tiles); None for a shard another
+    process owns."""
 
     shards: Tuple[DeviceCorpus, ...]
     rows: int
@@ -78,9 +88,27 @@ def prepare_sharded_corpus(
             margin=margin,
             device=dev,
         )
+        if _local(mesh, s)
+        else None
         for s, dev in enumerate(mesh)
     )
     return ShardedCorpus(shards, rows, mesh, tile_n)
+
+
+def _local(mesh, s: int) -> bool:
+    """Whether shard ``s`` is this process's (every shard of a device list)."""
+    return getattr(mesh, "is_local", lambda _: True)(s)
+
+
+def merge_parts(parts, mesh, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``merge_topk`` of this process's shards' candidates; over a grid
+    that spans processes, of every process's, all-gathered first."""
+    if getattr(mesh, "spans_processes", False):
+        dev = parts[0][0].device
+        ss = torch.cat([s.to(dev) for s, _ in parts], dim=1)
+        ii = torch.cat([i.to(dev) for _, i in parts], dim=1)
+        parts = list(zip(distributed.all_gather(ss), distributed.all_gather(ii)))
+    return merge_topk(parts, k)
 
 
 def merge_topk(parts, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -106,9 +134,10 @@ def sharded_topk_prepared(
     q32 = torch.as_tensor(queries).float()
     parts = []
     for s, dc in enumerate(sc.shards):  # every shard launched before any wait
-        scores, idx = tilemax_topk(q32.to(dc.exact.device), dc, k=k)
-        parts.append((scores, _offset(idx, s * sc.rows)))
-    return merge_topk(parts, k)
+        if dc is not None:
+            scores, idx = tilemax_topk(q32.to(dc.exact.device), dc, k=k)
+            parts.append((scores, _offset(idx, s * sc.rows)))
+    return merge_parts(parts, sc.mesh, k)
 
 
 def pad_corpus_for_mesh(corpus: torch.Tensor, valid: torch.Tensor, dp: int):
@@ -148,10 +177,12 @@ def sharded_cosine_topk(
     margin = int(os.environ.get("IMATCH_TILEMAX_MARGIN", "4"))  # as JAX's _tilemax_topk
     parts = []
     for s, dev in enumerate(mesh):
+        if not _local(mesh, s):
+            continue
         sl = slice(s * shard_rows, (s + 1) * shard_rows)
         dc = prepare_device_corpus(
             corpus[sl], valid[sl], tile_n=tile_n, score_dtype=dtype, margin=margin, device=dev
         )
         scores, idx = tilemax_topk(q32.to(dev), dc, k=k)
         parts.append((scores, _offset(idx, s * shard_rows)))
-    return merge_topk(parts, k)
+    return merge_parts(parts, mesh, k)

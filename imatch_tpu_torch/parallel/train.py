@@ -48,7 +48,7 @@ from imatch_tpu_torch.models.clip.bridge import params_from_numpy
 from imatch_tpu_torch.models.clip.configs import CLIPConfig
 from imatch_tpu_torch.models.clip.model import CLIPModel, clip_features, clip_forward, init_random
 from imatch_tpu_torch.ops.collectives import gather
-from imatch_tpu_torch.parallel.mesh import Grid, make_mesh
+from imatch_tpu_torch.parallel.mesh import Grid, as_grid
 from imatch_tpu_torch.parallel.sharding import model_shards, shard_index, shard_model
 
 # CLIP clamps exp(logit_scale) at 100 (openai/CLIP model.py public impl).
@@ -170,14 +170,6 @@ class AdamW:
 
 def make_optimizer(lr: float = 1e-5, weight_decay: float = 0.2, grad_clip: float = 1.0) -> AdamW:
     return AdamW(lr=lr, weight_decay=weight_decay, grad_clip=grad_clip)
-
-
-def as_grid(mesh: Optional[Sequence]) -> Optional[Grid]:
-    """``mesh`` as a grid: a ``Grid`` as it is, a device list as its data
-    axis (``make_mesh(devices)``), None as None."""
-    if mesh is None or isinstance(mesh, Grid):
-        return mesh
-    return make_mesh(list(mesh))
 
 
 def init_train_state(

@@ -63,7 +63,7 @@ def test_every_module_imports_without_jax_or_imatch_tpu():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     names = set(proc.stdout.split())
-    assert len(names) >= 36
+    assert len(names) >= 92  # every .py file of the package
     # every module was imported (models/clip is reached through the
     # embedder), the kernels' wrappers and the script ports among them
     for name in (
@@ -91,6 +91,11 @@ def test_every_module_imports_without_jax_or_imatch_tpu():
         "scripts.train_clip",
         "parallel.sharding",
         "ops.collectives",
+        "parallel.ring_attention",
+        "parallel.pipeline",
+        "parallel.distributed",
+        "scripts.dryrun_multiprocess",
+        "scripts.dryrun_multichip",
     ):
         assert f"imatch_tpu_torch.{name}" in names, name
 
