@@ -16,14 +16,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    towers' shapes, bf16 and fp32, with a fully masked case, at the
    bulk-ingest chunk (64, 16, 257, 64), and at the Moondream vision
    tower's (1, 16, 729, 72) and (16, 16, 729, 72). bf16 runs the
-   tensor-core kernel (flash_fwd_mma_kernel), fp32 the CUDA-core one
-   (flash_fwd_kernel).
+   tensor-core kernel (flash_fwd_mma_kernel), fp32 the register-blocked
+   CUDA-core one (flash_fwd_fp32_kernel).
 4. K1 (tile max) against its plain version, and the K1 engine against a
    full fp32 brute-force top-k, on a 2^20 x 768 corpus with tombstones and
-   duplicate rows, at Q = 1 and 16 (bf16 at Q = 16 runs the tensor-core
-   kernel, tile_max_mma_kernel); then K1's int8 variant, bit-identical to
-   its plain version, and the int8 engine against the brute force, on the
-   same corpus at Q = 1, 8, 16.
+   duplicate rows, at Q = 1 and 16, tiles 512 and 2048 (bf16 at Q = 16
+   runs the tensor-core kernel, tile_max_mma_kernel; fp32 at Q = 16 the
+   register-blocked CUDA-core one, tile_max_fp32_kernel), bf16 also at Q =
+   17 and 256, fp32 at Q = 17 and 256 (tiles 512 and 2048) and 64 (tile
+   512); then K1's int8 variant, bit-identical to its plain version, and
+   the int8 engine against the brute force, on the same corpus at Q = 1,
+   8, 16.
 5. K3 (row quantize) and K4 (LayerNorm + quantize) against their plain
    versions at the W8A8 image tower's shapes (rows B x 257 for B = 1, 32,
    64; D 1024 and 4096), bf16 and fp32, and at the W8A8 Moondream
@@ -73,11 +76,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    the fused chunk's stages timed (W8A8 beside the bf16 tower at B = 64);
    then the W8A8 tower against the fp32 tower on the card.
 8. The third slice end to end: the app at longclip-l14-248 over a store of
-   2^18 rows (2^20 until the scale phase came), once with IMATCH_SCORE_DTYPE=int8 and once with
-   IMATCH_INDEX_ENGINE=tilemax-host; uploads that patch the built index,
+   2^18 rows (2^20 until the scale phase came), once with IMATCH_SCORE_DTYPE=int8, once with
+   IMATCH_INDEX_ENGINE=tilemax-host and once with IMATCH_SCORE_DTYPE=fp32
+   (the fidelity tier); uploads that patch the built index,
    then text, image and multimodal searches over HTTP whose ids must equal
    a full fp32 brute force and the bf16 engine on the same rows, with the
-   K1 and K1-int8 launch counts read around them; 64 deletes and 64
+   K1 and K1-int8 launch counts read around them (the fp32 tier also
+   serves one /api/search/batch of 256 texts, one launch of K1's fp32
+   multi-query kernel, ids equal to the brute force up to near-ties); 64 deletes and 64
    updates (patched, or on the host tier one rebuild for the updates)
    checked as in phase 6 with K1-int8; then an IMATCH_INDEX_ENGINE=auto
    store of 2^16 rows whose 256 MiB device budget makes its build
@@ -226,7 +232,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    start (its log says whether their timings began after (d) ended);
    (a) and (b) run after both, on a quiet card.
 9. A cut-depth vit-b32 tower on the card against the same weights on the
-   CPU.
+   CPU, bf16 and fp32; the fp32 towers' K2 launches are counted and the
+   first at each shape held against the plain version (as in phase 7's
+   fidelity check).
 10. The two experiment entry points, python -m imatch_tpu_torch.scripts.
    exp_int4_kernel (K5) and exp_pallas_search (K6 beside K1), run to the
    end with the K5, K6 and tensor-core K1 launch counts read around them
@@ -234,7 +242,7 @@ Phases, in order; any failure exits non-zero and prints no result:
 11. Every kernel's device time from torch.profiler traces (``device_ms``
    and ``device_pct_of_bound``): K2 and SDPA at each phase-3 case
    (``library_device_ms``), and every other kernels-line entry at its own
-   shape (K1 Q = 1 and 16, K1 int8, K3 and K4 at 16448 bf16 rows and at
+   shape (K1 bf16 Q = 1 and 16, K1 fp32 Q = 16 and 256, K1 int8, K3 and K4 at 16448 bf16 rows and at
    the Moondream prefill's 760 and 12160, K5 at each tile, K6). Events of back-to-back calls time the host where it
    launches more slowly than the card runs (K2 at B = 1). It runs in a
    process of its own (``chip_smoke.py --child device``) on inputs of the
@@ -249,8 +257,11 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 The device breakdowns attribute profiler events to K1-K6 by kernel
 symbol (``kernel_key`` in imatch_tpu_torch/scripts/kernel_ab.py):
-flash_fwd_kernel and flash_fwd_mma_kernel are K2, tile_max_kernel and
-tile_max_mma_kernel are K1, int4_tile_max_mma_kernel is K5.
+flash_fwd_fp32_kernel and flash_fwd_mma_kernel are K2, tile_max_kernel,
+tile_max_mma_kernel and tile_max_fp32_kernel are K1,
+int4_tile_max_mma_kernel is K5. The fp32 counters (K1's
+``fp32_mq_launches``, K2's ``fp32_launches``) give the kernels line its two
+fp32 entries.
 
 The apps run with IMATCH_WARMUP=0: phase 6b runs the warmup itself,
 timed, and a background warmup would launch kernels inside the other
@@ -469,7 +480,8 @@ K34_TRACED = [
 def trace_specs() -> list:
     """Phase 11's calls, each a spec whose fields (but ``key``) name the
     phase 3-5b row it times: K2 (and SDPA where the row has a library
-    time) at every phase-3 case, K1 bf16 at Q = 1 and 16 with tile 512, K1
+    time) at every phase-3 case, K1 bf16 at Q = 1 and 16 and fp32 at Q = 16
+    and 256 with tile 512, K1
     int8 at Q = 1, K3 and K4 at K34_TRACED, K5 at each tile, K6 at (640,
     2048)."""
     specs = [
@@ -481,7 +493,7 @@ def trace_specs() -> list:
         {"key": "K2", "shape": list(shape), "causal": causal, "kv_len": shape[2], "dtype": "bfloat16"}
         for shape, causal in K2_TP_CASES
     ]
-    specs += [{"key": "K1", "q": q, "dtype": "bfloat16", "tile_n": 512} for q in (1, 16)]
+    specs += [{"key": "K1", "q": q, "dtype": dname, "tile_n": 512} for dname, qs in (("bfloat16", (1, 16)), ("float32", (16, N_BIG_BATCH))) for q in qs]
     specs.append({"key": "K1_int8", "q": 1})
     specs += [{"key": kernel, "kernel": kernel, "rows": r, "d": d, "dtype": "bfloat16"} for r, kernel, d in K34_TRACED]
     specs += [{"key": "K5", "tile_n": t} for t in (512, 1024, 2048)]
@@ -709,6 +721,11 @@ def phase_k1() -> list:
     for nq in (17, N_BIG_BATCH):
         for tile_n in (512, 2048):
             rows.append(k1_case(corpus, valid, nq, torch.bfloat16, tile_n))
+    # fp32 (IMATCH_SCORE_DTYPE=fp32) past 16 queries: a partial second
+    # chunk, a coalesced group's 64, and the batch route's 256
+    for nq, tiles in ((17, (512, 2048)), (64, (512,)), (N_BIG_BATCH, (512, 2048))):
+        for tile_n in tiles:
+            rows.append(k1_case(corpus, valid, nq, torch.float32, tile_n))
     del corpus, valid
     torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
@@ -1849,7 +1866,7 @@ def phase_surface(state, app, device) -> dict:
         **counts_of
     ) as towers:
         http = HttpClient(port)
-        tile_max.launches = tile_max.mma_launches = flash_mha.launches = 0
+        tile_max.launches = tile_max.mma_launches = tile_max.fp32_mq_launches = flash_mha.launches = 0
         # the app's warmup (app start) and warm at the batch route's shapes
         with counted_builds() as warm_builds, warnings_of("imatch.api") as warned:
             t = time.perf_counter()
@@ -1953,7 +1970,7 @@ def phase_surface(state, app, device) -> dict:
         assert status == 200 and body["successful"] == N_SAMPLES, body
         _sync(device)
         launches = {
-            "K1": tile_max.launches - tile_max.mma_launches,
+            "K1": tile_max.launches - tile_max.mma_launches - tile_max.fp32_mq_launches,
             "K1_mma": tile_max.mma_launches,
             "K2": flash_mha.launches,
         }
@@ -2401,6 +2418,7 @@ def breakdown_fused(emb, files, device) -> None:
 TIERS = {
     "int8": ({"IMATCH_SCORE_DTYPE": "int8"}, "tilemax"),
     "tilemax-host": ({"IMATCH_INDEX_ENGINE": "tilemax-host"}, "tilemax-host"),
+    "fp32": ({"IMATCH_SCORE_DTYPE": "fp32"}, "tilemax"),  # the fidelity tier: fp32 phase 1
 }
 N_TIER_UPLOADS = 4
 # the tier apps' store rows (2^20 until the scale phase came: the run's time limit)
@@ -2448,12 +2466,38 @@ def _references(store, queries, device, k=10):
     )
 
 
+def _ids_up_to_ties(queries, store, got_ids, k=10) -> dict:
+    """Each query's ids from the server against a full fp32 brute force
+    over the store's rows: equal, or equal up to fp32 near-ties (each id a
+    live row, once a row, whose full product is within 1e-5 of brute
+    force's score at its rank; phase 4's rule past 16 queries)."""
+    import torch
+
+    from imatch_tpu_torch.ops.kernels.topk import NEG_INF
+
+    n = store._n
+    dev = queries.device
+    rows = torch.from_numpy(store._emb[:n]).to(dev)
+    alive = torch.from_numpy(store._alive[:n]).to(dev)
+    bs, bi = brute_force_topk(queries.float(), rows, alive, k)
+    slot = {id_: i for i, id_ in enumerate(store._ids[:n])}
+    got = torch.tensor([[slot[i] for i in r] for r in got_ids], device=dev)
+    full = torch.where(alive[None, :], queries.float() @ rows.T, NEG_INF).gather(1, got)
+    distinct = bool((torch.sort(got, dim=1).values.diff(dim=1) != 0).all())
+    return {
+        "ids_equal_brute_force": bool(torch.equal(got, bi)),
+        "ids_equal_brute_force_up_to_ties": bool(alive[got].all()) and distinct and float((full - bs).abs().max()) <= 1e-5,
+    }
+
+
 def phase_tiers(embedder, device="cuda", store_rows=TIER_ROWS) -> dict:
-    """The int8 score tier and the tilemax-host tier, each an app over
-    HTTP on ``embedder`` with a store of ``store_rows`` rows; then an auto
-    store that escalates. Returns the K1 and K1-int8 launch counts of each
-    tier's searches. (A small config on the CPU rehearses the same control
-    flow.)"""
+    """The int8 score tier, the tilemax-host tier and the fp32 (fidelity)
+    tier, each an app over HTTP on ``embedder`` with a store of
+    ``store_rows`` rows; then an auto store that escalates. The fp32 tier
+    also serves one /api/search/batch of 256 texts (K1's fp32 multi-query
+    kernel), whose ids must equal the brute force up to near-ties. Returns
+    the K1, K1-int8 and K1-fp32 launch counts of each tier's searches. (A
+    small config on the CPU rehearses the same control flow.)"""
     import shutil
 
     import torch
@@ -2491,7 +2535,7 @@ def phase_tiers(embedder, device="cuda", store_rows=TIER_ROWS) -> dict:
                 assert status == 200 and body["success"], body
                 ids.append(body["metadata"]["id"])
             _sync(device)
-            tile_max.launches = 0
+            tile_max.launches = tile_max.fp32_mq_launches = 0
             tile_max_int8.launches = 0
             seen.clear()
             times, tops = {}, {}
@@ -2512,6 +2556,16 @@ def phase_tiers(embedder, device="cuda", store_rows=TIER_ROWS) -> dict:
                 tops[name] = [r["id"] for r in body["results"]]
             _sync(device)
             launches = {"K1": tile_max.launches, "K1_int8": tile_max_int8.launches}
+            if tier == "fp32":
+                # the batch route at its limit: one fp32 phase 1 of 256 queries
+                big = [f"query {i} {BATCH_TEXTS[i % 16]}" for i in range(N_BIG_BATCH)]
+                status, body, times["batch256_ms"] = http.request_json(
+                    "/api/search/batch", {"queries": big, "limit": 10}
+                )
+                _sync(device)
+                assert status == 200 and len(body["results"]) == N_BIG_BATCH, status
+                launches["K1_fp32"] = tile_max.fp32_mq_launches
+                batch_ids, batch_q = _ids_of(body), seen.pop()
         assert tops["image"][0] == ids[1], tops["image"]
         uploads_patched = store.stats()["patched_mutations"]
         queries = torch.cat([q.to(device) for q in seen])
@@ -2520,6 +2574,7 @@ def phase_tiers(embedder, device="cuda", store_rows=TIER_ROWS) -> dict:
             name: tops[name] == brute[j] == bf16[j]
             for j, name in enumerate(("text", "image", "multimodal"))
         }
+        batch = _ids_up_to_ties(batch_q.to(device), store, batch_ids) if tier == "fp32" else {}
         text_vec = queries[:1]
         wall = _host_ms(lambda: store.query(text_vec, n_results=10), device)
         # patches at full size: 64 deletes, then 64 updates (the host tier
@@ -2542,6 +2597,7 @@ def phase_tiers(embedder, device="cuda", store_rows=TIER_ROWS) -> dict:
             "first_build": first_build,
             **times,
             "ids_equal_brute_force_and_bf16": equal,
+            **({"batch256": batch} if batch else {}),
             "launches": launches,
             "store_query_ms": wall,
             "uploads_patched": uploads_patched,
@@ -2552,13 +2608,18 @@ def phase_tiers(embedder, device="cuda", store_rows=TIER_ROWS) -> dict:
                 lambda: store.query(text_vec, n_results=10), wall
             )
         log("tiers: " + json.dumps(row))
-        # one int8 phase 1 a search on the card; the CPU runs plain versions
-        expected = {"K1": 0, "K1_int8": 3 if torch.device(device).type == "cuda" else 0}
+        # one int8 (or fp32) phase 1 a search on the card, the batch's 256
+        # queries in one fp32 launch; the CPU runs plain versions
+        on_card = torch.device(device).type == "cuda"
+        expected = {"K1": 0, "K1_int8": 3} if tier != "fp32" else {"K1": 3, "K1_int8": 0, "K1_fp32": 1}
+        if not on_card:
+            expected = dict.fromkeys(expected, 0)
         # the uploads and the deletes patch; the updates patch, or rebuild once on the host tier
         want_patches = (N_TIER_UPLOADS + 1, 1) if engine == "tilemax-host" else (N_TIER_UPLOADS + 2, 0)
         if (
             first_build["engine"] != engine
             or not all(equal.values())
+            or (batch and not batch["ids_equal_brute_force_up_to_ties"])
             or launches != expected
             or uploads_patched != N_TIER_UPLOADS
             or not patched["ok"]
@@ -3187,7 +3248,7 @@ def phase_u2net(embedder, device="cuda", config=U2_CONFIG) -> dict:
             engine_calls(state.store) as calls, counted_cutouts(seg) as cut:
         http = HttpClient(port)
         _sync(device)
-        flash_mha.launches = tile_max.launches = tile_max.mma_launches = 0
+        flash_mha.launches = tile_max.launches = tile_max.mma_launches = tile_max.fp32_mq_launches = 0
         status, body, times["upload_remove_bg_ms"] = http.request(
             "POST", "/api/upload", [("remove_bg", "true")], [("file", "u.png", _png_bytes(upload))]
         )
@@ -3220,7 +3281,7 @@ def phase_u2net(embedder, device="cuda", config=U2_CONFIG) -> dict:
         results["/api/search/image-batch"] = bg["results"]
         _sync(device)
         launches = {
-            "K1": tile_max.launches - tile_max.mma_launches,
+            "K1": tile_max.launches - tile_max.mma_launches - tile_max.fp32_mq_launches,
             "K1_mma": tile_max.mma_launches,
             "K2": flash_mha.launches,
         }
@@ -3839,7 +3900,7 @@ def sharded_check(x, valid, queries, device, root) -> tuple:
     ids = [f"s{i}" for i in range(n)]
     dev = torch.device(device)
     on_card = dev.type == "cuda"
-    out, ok, launches = {}, True, {"K1": 0, "K1_mma": 0}
+    out, ok, launches = {}, True, {"K1": 0, "K1_mma": 0, "K1_fp32": 0}
 
     def engine_check(store, ref_answers, tag, p):
         """The store's Q = 1 and 16 answers against ``ref_answers`` and its
@@ -3849,12 +3910,13 @@ def sharded_check(x, valid, queries, device, root) -> tuple:
         row = {}
         for nq in (1, 16):
             _sync(device)
-            k1, mma = tile_max.launches, tile_max.mma_launches
+            k1, mma, f32 = tile_max.launches, tile_max.mma_launches, tile_max.fp32_mq_launches
             got = store.query(queries[:nq], n_results=10)
             _sync(device)
             calls = tile_max.launches - k1
             launches["K1_mma"] += tile_max.mma_launches - mma
-            launches["K1"] += calls - (tile_max.mma_launches - mma)
+            launches["K1_fp32"] += tile_max.fp32_mq_launches - f32
+            launches["K1"] += calls - (tile_max.mma_launches - mma) - (tile_max.fp32_mq_launches - f32)
             row[f"q{nq}"] = {"bit_equal": _bit_equal(got, ref_answers[nq]), "k1_launches": calls}
             ok &= row[f"q{nq}"]["bit_equal"] and calls == (p if on_card else 0)
         out[tag] = row
@@ -4014,7 +4076,7 @@ def phase_ivf(embedder, device="cuda", rows=IVF_ROWS, centres=IVF_CENTRES) -> di
     failed = [name for name, good in (("library", lib_ok), ("store", st_ok), ("http", http_ok), ("sharded", sh_ok)) if not good]
     if failed:
         raise AssertionError(f"phase 8e failed: {failed}")
-    return {"launches": {"K1": k1["K1"], "K1_mma": k1["K1_mma"], "K2": http["launches"]["K2"]}}
+    return {"launches": {"K1": k1["K1"], "K1_mma": k1["K1_mma"], "K1_fp32": k1["K1_fp32"], "K2": http["launches"]["K2"]}}
 
 
 # -- phase 8f ----------------------------------------------------------------
@@ -4148,6 +4210,7 @@ def _launch_window(engine_qs, towers, cfg, device, launches) -> tuple:
     expected = {
         "K1": sum(q == 1 for q in engine_qs),
         "K1_mma": sum(q >= 2 for q in engine_qs),
+        "K1_fp32": 0,  # bf16 stores
         "K2": cfg.vision.num_layers * towers["clip_vision"] + cfg.text.num_layers * towers["clip_text"],
     }
     if torch.device(device).type != "cuda":
@@ -4159,14 +4222,19 @@ def _read_launches():
     from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
     from imatch_tpu_torch.ops.kernels.topk import tile_max
 
-    return {"K1": tile_max.launches - tile_max.mma_launches, "K1_mma": tile_max.mma_launches, "K2": flash_mha.launches}
+    return {
+        "K1": tile_max.launches - tile_max.mma_launches - tile_max.fp32_mq_launches,
+        "K1_mma": tile_max.mma_launches,
+        "K1_fp32": tile_max.fp32_mq_launches,
+        "K2": flash_mha.launches,
+    }
 
 
 def _zero_launches():
     from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
     from imatch_tpu_torch.ops.kernels.topk import tile_max
 
-    flash_mha.launches = tile_max.launches = tile_max.mma_launches = 0
+    flash_mha.launches = tile_max.launches = tile_max.mma_launches = tile_max.fp32_mq_launches = 0
 
 
 def client_check(embedder, device, root) -> tuple:
@@ -5330,11 +5398,47 @@ def phase_scale(device="cuda") -> dict:
     }
 
 
-def phase_reference() -> None:
+@contextlib.contextmanager
+def fp32_k2_window():
+    """K2's fp32 kernel in a ``with`` block: the yielded dict gets its
+    launches there (``launches``) and, for the first launch at each shape,
+    the captured inputs run again and held against ``flash_mha_plain`` at
+    FP32_TOL (``held``: shape, causal, largest error, ok); those launches
+    are not counted."""
+    import torch
+
+    from imatch_tpu_torch.ops import attention
+    from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha, flash_mha_plain
+
+    out, served, captured = {}, attention.flash_mha, {}
+
+    def watch(q, k, v, **kw):
+        if q.dtype == torch.float32:
+            captured.setdefault((tuple(q.shape), bool(kw.get("causal"))), (q.clone(), k.clone(), v.clone(), kw))
+        return served(q, k, v, **kw)
+
+    attention.flash_mha = watch
+    before = flash_mha.fp32_launches
+    try:
+        yield out
+    finally:
+        attention.flash_mha = served
+    out["launches"] = flash_mha.fp32_launches - before
+    out["held"] = []
+    for (shape, causal), (q, k, v, kw) in captured.items():
+        ref = flash_mha_plain(q, k, v, **kw)
+        err = (flash_mha(q, k, v, **kw) - ref).abs()
+        ok = bool((err <= FP32_TOL + FP32_TOL * ref.abs()).all())
+        out["held"].append({"shape": list(shape), "causal": causal, "max_abs_err": float(err.max()), "ok": ok})
+
+
+def phase_reference() -> int:
     """vit-b32 (depth cut to 2 layers a tower) on the card, bf16 and fp32,
     against the same weights in fp32 on the CPU: per-row cosine of the
     embeddings, and of their deviations from the CPU mean (random-init
-    towers map every image close to one direction)."""
+    towers map every image close to one direction). The fp32 towers run
+    K2's fp32 kernel: its launches are counted (returned) and the first at
+    each shape held against the plain version."""
     import dataclasses
 
     import numpy as np
@@ -5364,8 +5468,14 @@ def phase_reference() -> None:
     bars = {torch.float32: (0.99999, 0.999), torch.bfloat16: (0.999, 0.9)}
     for dtype, (raw_bar, dev_bar) in bars.items():
         emb = ClipEmbedder(cfg, params=tree, device="cuda", compute_dtype=dtype)
-        got = np.concatenate([emb.embed_images(frames), emb.embed_texts(texts)])
+        with fp32_k2_window() as k2:
+            got = np.concatenate([emb.embed_images(frames), emb.embed_texts(texts)])
         assert got.shape == want.shape and np.isfinite(got).all()
+        if dtype == torch.float32:
+            log("reference fp32 K2: " + json.dumps(k2))
+            if not k2["launches"] or not k2["held"] or not all(h["ok"] for h in k2["held"]):
+                raise AssertionError(f"the fp32 towers' K2 launched no fp32 kernel or strays from its plain version: {k2}")
+            fp32_launches = k2["launches"]
         raw = (got * want).sum(1)
         a, b = got - mean, want - mean
         dev = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
@@ -5376,6 +5486,7 @@ def phase_reference() -> None:
         )
         if raw.min() < raw_bar or dev.min() < dev_bar:
             raise AssertionError(f"{dtype} towers on the card disagree with the CPU")
+    return fp32_launches
 
 
 def _cosines(got, want):
@@ -5390,14 +5501,16 @@ def _cosines(got, want):
     return raw, dev
 
 
-def phase_w8a8_fidelity(w8a8) -> None:
+def phase_w8a8_fidelity(w8a8) -> int:
     """The W8A8 tower (bf16 compute, as served) against the full-fp32
     tower on the same seed's weights, on the card, for 8 frames and for
     the 8 standard-normal pixel inputs the JAX tier's measurement used
     (scripts/exp_w8a8_vit.py); the bf16 tower beside it as the yardstick.
     The gate is the JAX tier's figure as that script computes it: the mean
     cosine over the 8 >= 0.9995, for both input sets; the minimum is
-    printed beside it."""
+    printed beside it. The fp32 tower runs K2's fp32 kernel: its launches
+    are counted (returned) and the first at each shape held against the
+    plain version."""
     import numpy as np
     import torch
     from PIL import Image
@@ -5417,10 +5530,16 @@ def phase_w8a8_fidelity(w8a8) -> None:
         ("w8a8", lambda: w8a8),
     ):
         e = emb()
-        towers[name] = (
-            e.embed_images(frames),
-            e._embed_pixels(noise.to(e.compute_dtype)).cpu().numpy(),
-        )
+        with fp32_k2_window() as k2:
+            towers[name] = (
+                e.embed_images(frames),
+                e._embed_pixels(noise.to(e.compute_dtype)).cpu().numpy(),
+            )
+        if name == "fp32":
+            log(f"fidelity {cfg.name} fp32 tower's K2: " + json.dumps(k2))
+            if not k2["launches"] or not k2["held"] or not all(h["ok"] for h in k2["held"]):
+                raise AssertionError(f"the fp32 tower's K2 launched no fp32 kernel or strays from its plain version: {k2}")
+            fp32_launches = k2["launches"]
         del e
         torch.cuda.empty_cache()
     worst = 1.0
@@ -5438,6 +5557,7 @@ def phase_w8a8_fidelity(w8a8) -> None:
                 worst = min(worst, float(raw.mean()))
     if worst < 0.9995:
         raise AssertionError(f"the W8A8 tower strays from the fp32 tower: mean cosine {worst}")
+    return fp32_launches
 
 
 # -- phase 10 ----------------------------------------------------------------
@@ -5564,13 +5684,20 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
     and its HTTP requests their K2 launches. Phase 8h's sharded Moondream
     encode gives the tensor-parallel K2 entry (a shard's (2, 8, 729, 72))
     its launches, and its data-parallel embedder adds its K2, K3 and K4
-    launches to those entries."""
+    launches to those entries. The fp32 kernels (the fidelity paths) have
+    entries of their own: K1 at Q >= 2 in fp32 at the batch route's 256
+    queries, with the fp32 tier's batch and phase 8e's fp32 sharded calls;
+    K2 in fp32 at the image tower's (32, 16, 257, 64), with the launches of
+    the fp32 towers of phases 7 (the fidelity check) and 9. An entry whose
+    kernel its path never launched fails the run."""
 
     def pick(table, **want):
         return next(r for r in table if all(r[k] == v for k, v in want.items()))
 
     k1 = pick(k1_rows, q=1, dtype="bfloat16", tile_n=512)
     k1q16 = pick(k1_rows, q=16, dtype="bfloat16", tile_n=512)
+    k1f32 = pick(k1_rows, q=N_BIG_BATCH, dtype="float32", tile_n=512)
+    k2f32 = pick(k2_rows, shape=[32, 16, 257, 64], dtype="float32")
     k1i8 = pick(k1i8_rows, q=1)
     k2 = pick(k2_rows, shape=[1, 16, 257, 64], dtype="bfloat16")
     k2_md = pick(k2_rows, shape=[1, 16, 729, 72], dtype="bfloat16")
@@ -5598,6 +5725,16 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
             "Q=8 row-major phase",
         ),
         (
+            "K1 tile_max, fp32 Q>=2 (CUDA cores)",
+            k1f32,
+            "imatch_tpu_torch/csrc/tile_max.cu",
+            "imatch_tpu/ops/pallas/topk.py:84",
+            "K1_fp32",
+            f"Q={N_BIG_BATCH} x {k1f32['n']}x{k1f32['d']} fp32, tile_n 512 (IMATCH_SCORE_DTYPE=fp32); "
+            "launches: the fp32 tier's /api/search/batch of 256 texts and phase 8e's sharded "
+            "engine in fp32 at Q=16",
+        ),
+        (
             "K1 tile_max_int8",
             k1i8,
             "imatch_tpu_torch/csrc/tile_max.cu",
@@ -5613,6 +5750,16 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
             "imatch_tpu/ops/pallas/flash_attention.py:26",
             "K2",
             "(1, 16, 257, 64) bf16, non-causal",
+        ),
+        (
+            "K2 flash_attention, fp32 (CUDA cores)",
+            k2f32,
+            "imatch_tpu_torch/csrc/flash_attention.cu",
+            "imatch_tpu/ops/pallas/flash_attention.py:26",
+            "K2_fp32",
+            "(32, 16, 257, 64) fp32, non-causal (ClipEmbedder(compute_dtype=torch.float32)); "
+            "launches: the fp32 towers of phase 9 (vit-b32, 2 layers) and of the W8A8 "
+            "fidelity check (LongCLIP-L/14-248's image tower, 8 frames twice)",
         ),
         (
             "K2 flash_attention, Moondream vision tower",
@@ -5683,6 +5830,8 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
             "Q=8 x (640, 1048576) bf16 transposed, tile_n 2048",
         ),
     ):
+        if not launches.get(key):
+            raise AssertionError(f"{name} was launched no time on its path")
         entry = {
             "name": name,
             "route": "cuda",
@@ -5701,7 +5850,7 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
         # where it launches more slowly than the card runs (K2 at B = 1)
         entry["device_ms"] = row["device_ms"]
         entry["device_pct_of_bound"] = row["device_pct_of_bound"]
-        if key in ("K2", "K2_md", "K2_tp"):
+        if key in ("K2", "K2_md", "K2_tp", "K2_fp32"):
             entry["library_device_ms"] = row["library_device_ms"]
         if key in ("K3", "K4", "K3_md", "K4_md"):
             entry["library_note"] = "no single PyTorch call computes a per-row int8 quantize"
@@ -5757,14 +5906,21 @@ def step_w8a8(ctx) -> None:
     with environment(IMATCH_CAPTIONER="null"):
         launches, w8a8 = phase_w8a8()
     _add_launches(ctx, K3=launches["K3"], K4=launches["K4"])
-    phase_w8a8_fidelity(w8a8)
+    _add_launches(ctx, K2_fp32=phase_w8a8_fidelity(w8a8))
 
 
 def step_tiers(ctx) -> None:
     with environment(IMATCH_CAPTIONER="null"):
         tiers = phase_tiers(_slice_embedder(ctx))
-    # the int8 tier's device-resident folder adds its K2
-    _add_launches(ctx, K1_int8=sum(c["K1_int8"] for c in tiers.values()), K2=tiers["int8"]["K2_ingest"])
+    # the int8 tier's device-resident folder adds its K2; the fp32 tier's
+    # single searches run K1 (fp32, Q = 1), its batch the fp32 multi-query K1
+    _add_launches(
+        ctx,
+        K1_int8=sum(c["K1_int8"] for c in tiers.values()),
+        K2=tiers["int8"]["K2_ingest"],
+        K1=tiers["fp32"]["K1"],
+        K1_fp32=tiers["fp32"]["K1_fp32"],
+    )
 
 
 def step_moondream(ctx) -> None:
@@ -5777,7 +5933,7 @@ def step_clip_path(phase):
 
     def step(ctx):
         launches = phase(_slice_embedder(ctx))["launches"]
-        _add_launches(ctx, **{k: launches[k] for k in ("K1", "K1_mma", "K2")})
+        _add_launches(ctx, **{k: launches.get(k, 0) for k in ("K1", "K1_mma", "K1_fp32", "K2")})
 
     return step
 
@@ -5827,7 +5983,7 @@ PHASES = {
     "train": lambda ctx: phase_train(),
     "parallel": step_parallel,
     "scale": step_scale,
-    "reference": lambda ctx: phase_reference(),
+    "reference": lambda ctx: _add_launches(ctx, K2_fp32=phase_reference()),
     "scripts": step_scripts,
     "device": lambda ctx: phase_device(ctx["rows"]),
     "profile": lambda ctx: phase_profile_apart(),

@@ -44,184 +44,63 @@
 // QKV projection): every row start must be 16-byte aligned, which the
 // wrapper checks.
 //
-// fp32 (flash_fwd_kernel, unchanged from the first port): 128 threads own
-// a 64-query tile and do both products on the fp32 CUDA cores (no TF32:
-// fp32 is the fidelity path), so it is bound by those operations
-// (67 TFLOP/s). Thread (ty, tx), ty = tid / 8 and tx = tid % 8, owns query
-// rows 4*ty .. 4*ty+3, key columns tx + 8*j of each logits tile and output
-// columns tx + 8*j of the accumulator; Q, K and V are read once per (query
-// block, key block), the logits live only in shared memory, and the ragged
-// edges are masked in the kernel with no padded copies.
+// fp32 (flash_fwd_fp32_kernel) runs both products on the fp32 CUDA cores
+// (no TF32: fp32 is the fidelity path), so it is bound by those operations,
+// 4 * S^2 * Dh a head at 67 TFLOP/s (its bytes take a quarter of that time
+// at S = 257). It is built as an fp32 GEMM is:
+// - register-blocked micro-tiles for both products. Each warp owns 16
+//   query rows and lane (ty, tx), ty = lane / 8 and tx = lane % 8, owns
+//   rows ty + 4i (i < 4): for S = Q K^T the keys tx + 8j of the 64-key
+//   tile (4 x 8 accumulators; per 4 dims 12 float4 reads for 128 FMAs),
+//   for O += P V the columns 4(tx + 8m) .. +3 as float4s and, for Dh % 32
+//   = 8 .. 24, the single columns 32 * (Dh / 32) + tx + 8r: Dh / 8
+//   columns, so Dh = 72 takes two float4s and one float a key with no
+//   padded column. What bounds it: the shared-memory crossbar delivers 32
+//   floats a clock to an SM's lanes against 128 fp32 FMAs, so a tile that
+//   does R FMAs a float read runs the FMAs at most R / 4 of the time; this
+//   one does 2.7. An 8 x 8 tile (4 a float) measured slower: its 255
+//   registers a thread fit 8 warps an SM, against 12 here, and the loop
+//   waits on shared memory's latency;
+// - Q and K rows are padded to Dh + 4 floats (an odd number of 16-byte
+//   units), so the 4 rows or 8 keys that a warp's float4 reads touch fall
+//   in different bank groups; V is read along its rows and a warp's P rows
+//   are padded to 72 floats: no bank conflict anywhere;
+// - Q (once), K and V are copied with cp.async 16-byte copies; K and V
+//   each have one buffer, and each copy runs while the other's product
+//   computes: V of this tile during Q K^T, K of the next tile during P V.
+//   Every copy overlaps compute as with a double buffer, in half its
+//   shared memory (74 KB a block of 4 warps at Dh = 72: three blocks an
+//   SM), two barriers a tile;
+// - the online softmax runs in registers in log2 units (Dh^-1/2 and log2 e
+//   applied to the fp32 logits, ex2.approx for the exponentials); a row's
+//   max and sum reduce over the 8 lanes that share it (xor shuffles 1, 2,
+//   4), and P goes through a slice of shared memory private to the warp,
+//   so P V needs only __syncwarp;
+// - up to 4 warps a block: the most that still put a block on every SM
+//   and leave under a quarter of the warps without a row (B = 1 shapes:
+//   (1,16,257,64) runs 272 blocks of one warp). The last key tile and the
+//   last warp's rows compute only their 8-key and 4-row groups that hold a
+//   visible key or a row below S: S = 257 does not pay for 320 keys, and a
+//   causal warp stops at its diagonal. A causal grid starts the row blocks
+//   that see the most keys first, across all heads, so that the short
+//   ones fill the tail.
+// Every row start of q, k and v must be 16-byte aligned (base pointers and
+// strides), which the wrapper checks; keys at or past kv_len are
+// zero-filled in shared memory, never read; m starts at the finite
+// M_INIT, so a row with no visible key keeps l = 0 and writes 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // queries per block
-constexpr int BK = 64;          // keys per step
-constexpr int NTHREADS = 128;   // 16 row groups x 8 column lanes
 constexpr float M_INIT = -1e30f;  // running max before any visible key
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-template <int DH>
-constexpr size_t smem_bytes() {
-  // Q and K tiles padded to DH + 1 floats a row (no bank conflicts when
-  // 8 lanes read 8 different rows), V unpadded, P padded to BK + 1.
-  return sizeof(float) *
-         (size_t(BQ) * (DH + 1) + size_t(BK) * (DH + 1) + size_t(BK) * DH + size_t(BQ) * (BK + 1));
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int H, int S, int kv_len, int causal, float scale,
-                 long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
-                 long long kss, long long vsb, long long vsh, long long vss, long long osb,
-                 long long osh, long long oss) {
-  constexpr int LD = DH + 1;
-  constexpr int LP = BK + 1;
-  constexpr int NJ = DH / 8;  // accumulator columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;            // BQ x LD, already scaled
-  float* Ks = Qs + BQ * LD;    // BK x LD
-  float* Vs = Ks + BK * LD;    // BK x DH
-  float* Ps = Vs + BK * DH;    // BQ x LP
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3;
-  const int tx = tid & 7;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * BQ;
-
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + h * ksh;
-  const T* vb = v + b * vsb + h * vsh;
-  T* ob = o + b * osb + h * osh;
-
-  for (int i = tid; i < BQ * DH; i += NTHREADS) {
-    const int r = i / DH;
-    const int c = i - r * DH;
-    const int qp = q0 + r;
-    Qs[r * LD + c] = qp < S ? to_f(qb[qp * qss + c]) * scale : 0.f;
-  }
-
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = M_INIT;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
-  }
-
-  // Keys past the block's last query are masked for every row of a causal
-  // block, so the loop stops there.
-  int kv_end = kv_len;
-  if (causal && q0 + BQ < kv_end) kv_end = q0 + BQ;
-
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous step is done with Ks, Vs and Ps
-    for (int i = tid; i < BK * DH; i += NTHREADS) {
-      const int r = i / DH;
-      const int c = i - r * DH;
-      const int kp = k0 + r;
-      const bool in = kp < kv_len;
-      Ks[r * LD + c] = in ? to_f(kb[kp * kss + c]) : 0.f;
-      Vs[r * DH + c] = in ? to_f(vb[kp * vss + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      float qv[4], kv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(4 * ty + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = Ks[(tx + 8 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + 4 * ty + i;
-      float rmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kp = k0 + tx + 8 * j;
-        const bool ok = kp < kv_len && (!causal || kp <= qp);
-        s[i][j] = ok ? s[i][j] : -INFINITY;
-        rmax = fmaxf(rmax, s[i][j]);
-      }
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 4));
-      // m_new stays finite (>= M_INIT), so masked logits give exp(-inf) = 0
-      // and a row with no visible key keeps l == 0.
-      const float m_new = fmaxf(m[i], rmax);
-      const float alpha = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rsum += p;
-        Ps[(4 * ty + i) * LP + tx + 8 * j] = p;
-      }
-      rsum += __shfl_xor_sync(0xffffffffu, rsum, 1);
-      rsum += __shfl_xor_sync(0xffffffffu, rsum, 2);
-      rsum += __shfl_xor_sync(0xffffffffu, rsum, 4);
-      l[i] = l[i] * alpha + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) acc[i][jj] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(4 * ty + i) * LP + c];
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const float vv = Vs[c * DH + tx + 8 * jj];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + 4 * ty + i;
-    if (qp >= S) continue;
-    const bool any = l[i] > 0.f;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj)
-      ob[qp * oss + tx + 8 * jj] = from_f<T>(any ? acc[i][jj] / l[i] : 0.f);
-  }
-}
 
 // -- bf16: tensor cores ----------------------------------------------------------
 
@@ -502,29 +381,335 @@ cudaError_t dispatch_bf16(int dh, const void* q, const void* k, const void* v, v
 
 // -- fp32: CUDA cores ----------------------------------------------------------------
 
-template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int S,
-                   int kv_len, int causal, const long long* st, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DH>();
+constexpr int F_BK = 64;          // keys a tile
+constexpr int F_MAX_WARPS = 4;
+constexpr int F_TM = 4;           // query rows a lane: rows ty + 4i
+constexpr int F_WR = 4 * F_TM;    // query rows a warp
+constexpr int F_LP = F_BK + 8;    // a P row: 18 16-byte units, rows 8 banks apart
+
+// 2^x by the hardware's approximation (ex2.approx.ftz: relative error
+// about 2^-22, exp2(-inf) = 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int DH>
+struct F32Shape {
+  static constexpr int LD = DH + 4;            // Q and K rows: DH / 4 + 1 16-byte units (odd)
+  static constexpr int CPR = DH / 4;           // 16-byte chunks of a row
+  static constexpr int NC4 = DH / 32;          // float4 output columns a lane: 4(tx + 8m)
+  static constexpr int NR = DH % 32 / 8;       // single output columns a lane: 32 NC4 + tx + 8r
+  static constexpr int TD = DH / 8;            // output columns a lane
+  static constexpr int smem(int nw) {
+    return int(sizeof(float)) * (nw * F_WR * (LD + F_LP) + F_BK * (LD + DH));
+  }
+};
+
+template <int DH>
+__global__ void __launch_bounds__(32 * F_MAX_WARPS)
+flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o, int H, int S,
+                      int kv_len, int causal, float scale_log2, long long qsb, long long qsh,
+                      long long qss, long long ksb, long long ksh, long long kss, long long vsb,
+                      long long vsh, long long vss, long long osb, long long osh, long long oss) {
+  using Sh = F32Shape<DH>;
+  constexpr int TM = F_TM;
+  constexpr int WR = F_WR;
+  constexpr int LD = Sh::LD;
+  constexpr int CPR = Sh::CPR;
+  constexpr int NC4 = Sh::NC4;
+  constexpr int NR = Sh::NR;
+  constexpr int TD = Sh::TD;
+  extern __shared__ __align__(16) float f32_smem[];
+
+  const int nthreads = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ty = lane >> 3;
+  const int tx = lane & 7;
+  const int bq = (nthreads >> 5) * WR;
+  // A head's row blocks are neighbours (they share its K and V in L2); a
+  // causal grid runs its last row blocks, which see the most keys, first
+  // across all heads, so the short ones fill the tail.
+  const int n_rb = (S + bq - 1) / bq;
+  const int n_bh = int(gridDim.x) / n_rb;
+  int rb, bh;
+  if (causal) {
+    rb = n_rb - 1 - int(blockIdx.x) / n_bh;
+    bh = int(blockIdx.x) % n_bh;
+  } else {
+    rb = int(blockIdx.x) % n_rb;
+    bh = int(blockIdx.x) / n_rb;
+  }
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = rb * bq;
+  const int wr0 = q0 + warp * WR;  // the warp's first query row
+
+  float* qs = f32_smem;                            // bq x LD
+  float* ks = qs + bq * LD;                        // F_BK x LD
+  float* vs = ks + F_BK * LD;                      // F_BK x DH
+  float* ps = vs + F_BK * DH + warp * WR * F_LP;   // the warp's P: WR x F_LP
+
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + h * ksh;
+  const float* vb = v + b * vsb + h * vsh;
+  float* ob = o + b * osb + h * osh;
+
+  // Keys past the block's last query are masked for every row of a causal
+  // block, so the loop stops there.
+  int kv_end = kv_len;
+  if (causal && q0 + bq < kv_end) kv_end = q0 + bq;
+  const int n_tiles = (kv_end + F_BK - 1) / F_BK;
+
+  // Q once (rows past S zero), then K of the first tile, in one group.
+  for (int i = tid; i < bq * CPR; i += nthreads) {
+    const int r = i / CPR;
+    const int c = 4 * (i - r * CPR);
+    const int qp = q0 + r;
+    const bool in = qp < S;
+    hopper::cp_async16(hopper::smem_addr(qs + r * LD + c), qb + (in ? qp : 0) * qss + c, in);
+  }
+  // One tile of K or V: keys at or past kv_len are zero-filled, never read.
+  auto load = [&](float* dst, int ld, const float* src, long long ss, int k0) {
+    for (int i = tid; i < F_BK * CPR; i += nthreads) {
+      const int r = i / CPR;
+      const int c = 4 * (i - r * CPR);
+      const int kp = k0 + r;
+      const bool in = kp < kv_len;
+      hopper::cp_async16(hopper::smem_addr(dst + r * ld + c), src + (in ? kp : 0) * ss + c, in);
+    }
+    hopper::cp_async_commit();
+  };
+  load(ks, LD, kb, kss, 0);
+
+  // Groups of 4 rows (rows ty + 4i) that hold a row below S.
+  const int row_groups = wr0 < S ? min(TM, (S - wr0 + 3) / 4) : 0;
+  float m[TM], l[TM], acc[TM][TD];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m[i] = M_INIT;
+    l[i] = 0.f;
+#pragma unroll
+    for (int d = 0; d < TD; ++d) acc[i][d] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * F_BK;
+    hopper::cp_async_wait<0>();
+    __syncthreads();  // K (and Q) in shared memory; every warp is done with V
+    load(vs, DH, vb, vss, k0);
+
+    // Keys of the tile that some row of the warp sees: [k0, kend).
+    int kend = min(kv_len, k0 + F_BK);
+    if (causal) kend = min(kend, wr0 + WR);
+    const bool active = row_groups > 0 && kend > k0;
+    // An edge tile masks its logits and computes only the 8-key groups
+    // below kend and the 4-row groups below S.
+    const bool edge = kend < k0 + F_BK || (causal && k0 + F_BK - 1 > wr0) || row_groups < TM;
+    const int key_groups = (kend - k0 + 7) / 8;
+
+    // S = Q K^T, masked, and the online softmax; P into the warp's slice.
+    auto qk_softmax = [&](auto edge_tag) {
+      constexpr bool EDGE = decltype(edge_tag)::value;
+      const int jn = EDGE ? key_groups : 8;
+      const int in = EDGE ? row_groups : TM;
+      float s[TM][8];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+      const float* qrow = qs + (warp * WR + ty) * LD;
+      const float* krow = ks + tx * LD;
+      for (int d = 0; d < DH; d += 4) {
+        float4 kf[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (j < jn) kf[j] = *reinterpret_cast<const float4*>(krow + 8 * j * LD + d);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          if (i < in) {
+            const float4 qf = *reinterpret_cast<const float4*>(qrow + 4 * i * LD + d);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (j < jn) s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (j < jn) s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (j < jn) s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (j < jn) s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        if (i < in) {
+          const int qp = wr0 + ty + 4 * i;
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (j < jn) {
+              float x = s[i][j] * scale_log2;
+              if (EDGE) {
+                const int kp = k0 + tx + 8 * j;
+                x = kp < kv_len && (!causal || kp <= qp) ? x : -INFINITY;
+              }
+              s[i][j] = x;
+              mx = fmaxf(mx, x);
+            }
+          }
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+          // m stays finite (>= M_INIT), so masked logits give exp2(-inf) = 0
+          // and a row with no visible key keeps l == 0.
+          const float m_new = fmaxf(m[i], mx);
+          const float alpha = fast_exp2(m[i] - m_new);
+          m[i] = m_new;
+          float rs = 0.f;
+          float* prow = ps + (ty + 4 * i) * F_LP + tx;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (j < jn) {
+              const float p = fast_exp2(s[i][j] - m_new);
+              rs += p;
+              prow[8 * j] = p;
+            }
+          }
+          rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+          rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+          rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+          l[i] = l[i] * alpha + rs;
+#pragma unroll
+          for (int d = 0; d < TD; ++d) acc[i][d] *= alpha;
+        }
+      }
+      __syncwarp();  // the warp's P is written
+    };
+
+    // O += P V over the keys whose P this warp wrote.
+    auto pv = [&](auto edge_tag) {
+      constexpr bool EDGE = decltype(edge_tag)::value;
+      const int in = EDGE ? row_groups : TM;
+      const int n_keys = EDGE ? 8 * key_groups : F_BK;
+      const float* prow = ps + ty * F_LP;
+      for (int c = 0; c < n_keys; c += 4) {
+        float4 pf[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          if (i < in) pf[i] = *reinterpret_cast<const float4*>(prow + 4 * i * F_LP + c);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* vrow = vs + (c + kk) * DH;
+          float4 vf[NC4 > 0 ? NC4 : 1];
+          float vc[NR > 0 ? NR : 1];
+#pragma unroll
+          for (int mm = 0; mm < NC4; ++mm)
+            vf[mm] = *reinterpret_cast<const float4*>(vrow + 4 * (tx + 8 * mm));
+#pragma unroll
+          for (int r = 0; r < NR; ++r) vc[r] = vrow[32 * NC4 + tx + 8 * r];
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            if (i < in) {
+              const float p = kk == 0 ? pf[i].x : kk == 1 ? pf[i].y : kk == 2 ? pf[i].z : pf[i].w;
+#pragma unroll
+              for (int mm = 0; mm < NC4; ++mm) {
+                acc[i][4 * mm] = fmaf(p, vf[mm].x, acc[i][4 * mm]);
+                acc[i][4 * mm + 1] = fmaf(p, vf[mm].y, acc[i][4 * mm + 1]);
+                acc[i][4 * mm + 2] = fmaf(p, vf[mm].z, acc[i][4 * mm + 2]);
+                acc[i][4 * mm + 3] = fmaf(p, vf[mm].w, acc[i][4 * mm + 3]);
+              }
+#pragma unroll
+              for (int r = 0; r < NR; ++r) acc[i][4 * NC4 + r] = fmaf(p, vc[r], acc[i][4 * NC4 + r]);
+            }
+          }
+        }
+      }
+    };
+
+    if (active) {
+      if (edge) {
+        qk_softmax(std::true_type{});
+      } else {
+        qk_softmax(std::false_type{});
+      }
+    }
+    hopper::cp_async_wait<0>();
+    __syncthreads();  // V in shared memory; every warp is done with K
+    if (t + 1 < n_tiles) load(ks, LD, kb, kss, k0 + F_BK);
+    if (active) {
+      if (edge) {
+        pv(std::true_type{});
+      } else {
+        pv(std::false_type{});
+      }
+    }
+  }
+
+  hopper::cp_async_wait<0>();  // kv_len 0 leaves the first tile's zero-fill in flight
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int qp = wr0 + ty + 4 * i;
+    if (qp >= S) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    float* orow = ob + qp * oss;
+#pragma unroll
+    for (int mm = 0; mm < NC4; ++mm) {
+      *reinterpret_cast<float4*>(orow + 4 * (tx + 8 * mm)) =
+          make_float4(acc[i][4 * mm] * inv, acc[i][4 * mm + 1] * inv, acc[i][4 * mm + 2] * inv,
+                      acc[i][4 * mm + 3] * inv);
+    }
+#pragma unroll
+    for (int r = 0; r < NR; ++r) orow[32 * NC4 + tx + 8 * r] = acc[i][4 * NC4 + r] * inv;
+  }
+}
+
+template <int DH>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int H,
+                        int S, int kv_len, int causal, const long long* st,
+                        cudaStream_t stream) {
+  using Sh = F32Shape<DH>;
   static std::atomic<int> granted[hopper::kMaxDevices];
-  cudaError_t err = hopper::allow_smem(flash_fwd_kernel<T, DH>, int(smem), granted);
+  cudaError_t err =
+      hopper::allow_smem(flash_fwd_fp32_kernel<DH>, Sh::smem(F_MAX_WARPS), granted);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  const float scale = 1.0f / sqrtf(float(DH));
-  flash_fwd_kernel<T, DH><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, S, kv_len, causal, scale, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], st[11]);
+  // The most warps a block that still put a block on every SM and leave
+  // under a quarter of the warps without a row (S = 257 at 32 rows a warp
+  // is 9 warps: 3 blocks of 3, not 3 blocks of 4 whose last holds one row).
+  const int bh = B * H;
+  const int warps = (S + F_WR - 1) / F_WR;  // a head's
+  int nw = 1;
+  for (int c = F_MAX_WARPS; c > 1; --c) {
+    const int blocks = (warps + c - 1) / c;
+    if (bh * blocks >= FILL_BLOCKS && 4 * (blocks * c - warps) < blocks * c) {
+      nw = c;
+      break;
+    }
+  }
+  const dim3 grid(unsigned((warps + nw - 1) / nw) * unsigned(bh));
+  const float scale_log2 = LOG2E / sqrtf(float(DH));
+  flash_fwd_fp32_kernel<DH><<<grid, 32 * nw, Sh::smem(nw), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), H, S, kv_len, causal, scale_log2, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int dh, const void* q, const void* k, const void* v, void* o, int B, int H,
-                     int S, int kv_len, int causal, const long long* st, cudaStream_t stream) {
+cudaError_t dispatch_fp32(int dh, const void* q, const void* k, const void* v, void* o, int B,
+                          int H, int S, int kv_len, int causal, const long long* st,
+                          cudaStream_t stream) {
   switch (dh) {
 #define CASE(D) \
   case D:       \
-    return launch<T, D>(q, k, v, o, B, H, S, kv_len, causal, st, stream);
+    return launch_fp32<D>(q, k, v, o, B, H, S, kv_len, causal, st, stream);
     CASE(8) CASE(16) CASE(24) CASE(32) CASE(40) CASE(48) CASE(56) CASE(64)
     CASE(72) CASE(80) CASE(88) CASE(96) CASE(104) CASE(112) CASE(120) CASE(128)
 #undef CASE
@@ -544,7 +729,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
                         int H, int S, int Dh, int kv_len, int causal, const long long* strides,
                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(Dh, q, k, v, o, B, H, S, kv_len, causal, strides, st);
+  if (dtype == 0) return dispatch_fp32(Dh, q, k, v, o, B, H, S, kv_len, causal, strides, st);
   if (dtype == 1) return dispatch_bf16(Dh, q, k, v, o, B, H, S, kv_len, causal, strides, st);
   return cudaErrorInvalidValue;
 }

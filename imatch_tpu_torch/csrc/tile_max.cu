@@ -11,20 +11,19 @@
 // mask operand; phase 2 picks the same tiles either way.
 //
 // What bounds it on the card: each corpus byte is needed once per query
-// chunk and there are Q * D multiply-adds per row, so for the query counts
-// a search serves (1 to a few hundred) it is bound by the corpus bytes over
-// the 3.35 TB/s of HBM3. Every variant reads each corpus byte from device
-// memory once per query chunk, writes one plain store per (query, tile)
-// and uses no atomics, since no two blocks write the same output. One
-// block per (tile, chunk of queries).
+// chunk and there are Q * D multiply-adds per row, so a few queries are
+// bound by the corpus bytes over the 3.35 TB/s of HBM3, and past about 40
+// fp32 queries (2 * Q * D operations against 4 * D bytes a row, at 67
+// TFLOP/s fp32) by the fp32 operations. Every variant reads each corpus
+// byte from device memory once per query chunk, writes one plain store per
+// (query, tile) and uses no atomics, since no two blocks write the same
+// output.
 //
-// Q = 1, and fp32 at any Q (tile_max_kernel): the query chunk (up to 16)
-// is staged once in shared memory as fp32; groups of 8 lanes stream one
-// corpus row each with 16-byte coalesced loads; each lane keeps per-query
-// partial sums and running maxima in registers, reduced with warp shuffles
-// and then through shared memory. At Q = 1 this reaches about 90% of the
-// bound; at Q > 1 the 8 lanes of a group read query float4s 32 bytes
-// apart (bank conflicts) and the multiply-adds are scalar, so bf16 has:
+// Q = 1 (tile_max_kernel, bf16 and fp32): one block per tile; the query is
+// staged once in shared memory as fp32; groups of 8 lanes stream one
+// corpus row each with 16-byte coalesced loads; each lane keeps its
+// partial sum and running maximum in registers, reduced with warp shuffles
+// and then through shared memory. This reaches about 90% of the bound.
 //
 // bf16 at Q >= 2 (tile_max_mma_kernel): the tensor cores, mma.sync
 // m16n8k16 with A = 16 corpus rows x 16 dims and B = 16 dims x 8 queries
@@ -42,6 +41,34 @@
 // adds are free). Invalid rows are masked to -3e38 after the k loop; the
 // tile maximum reduces over the fragment's rows with shuffles, then
 // across the warps through shared memory.
+//
+// fp32 at Q >= 2 (tile_max_fp32_kernel): a register-blocked product on
+// the CUDA cores (no TF32: fp32 is the fidelity tier). A block owns one
+// tile and one chunk of queries: 4 x ceil(Q / 4) queries up to 40 queries
+// (at most 3 padded query columns, and the corpus read once: Q = 17 does
+// 20 queries' work), 64 queries beyond (the corpus read ceil(Q / 64)
+// times; the chunks of one tile are neighbouring blocks, so the later
+// ones mostly find its rows in L2). It walks the tile in slabs of 256 rows
+// (512 past 40 queries); each slab goes through shared memory in stages
+// of 32 dims, corpus rows and queries alike, copied with cp.async 16-byte
+// copies into a double buffer, so the next stage loads while this one
+// computes (one barrier a stage). Staged rows are padded to 36 floats (9
+// 16-byte units, odd), so the 8 consecutive rows or queries that a warp's
+// 16-byte reads touch fall in 8 different bank groups: every read is a
+// conflict-free float4. Each thread keeps a TM x TN micro-tile of fp32
+// accumulators, rows ty + NRG * i and queries tx + 4j: per 4 dims it reads
+// TM + TN float4s for 4 * TM * TN multiply-adds. Past 40 queries the tile
+// is 8 rows x 16 queries, 5.3 multiply-adds a float read: on this card the
+// shared-memory crossbar delivers 32 floats a clock to an SM's lanes
+// against 128 fp32 multiply-adds, so a product needs more than 4
+// multiply-adds a float read to be bound by the FMAs and not by shared
+// memory; 8 x 8 (4 a float) measured slower. Up to 40 queries the tile is
+// 4 rows x TN queries: there the bytes bound it, and the small tile keeps
+// 2 blocks (16 warps) an SM to overlap the copies. After a slab's last
+// stage the invalid rows (and rows past tile_n) are masked to -3e38 and
+// folded into a running maximum a query; at the end the maxima reduce
+// over the row groups with shuffles, then across the warps through shared
+// memory. Each dot sums its dims in order, one fp32 FMA a dim.
 //
 // The int8 variant (tile_max_int8 below) is phase 1 of the int8 score tier
 // and of the tilemax-host tier: the math of imatch_tpu/index/search.py::
@@ -90,11 +117,12 @@ __device__ __forceinline__ void unpack(const uint4& raw, float (&x)[8]) {
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename T, int QC>
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 tile_max_kernel(const T* __restrict__ queries, const T* __restrict__ corpus,
                 const uint8_t* __restrict__ valid, float* __restrict__ out, int Q, int D,
                 int tile_n, int n_tiles) {
+  constexpr int QC = 1;  // one query: Q >= 2 runs on tile_max_mma_kernel or tile_max_fp32_kernel
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   extern __shared__ __align__(16) float qs[];  // QC x D, fp32
   __shared__ float red[NWARPS][QC];
@@ -177,15 +205,16 @@ tile_max_kernel(const T* __restrict__ queries, const T* __restrict__ corpus,
   }
 }
 
-template <typename T, int QC>
+template <typename T>
 cudaError_t launch(const void* queries, const void* corpus, const uint8_t* valid, float* out,
                    int Q, int D, int tile_n, int n_tiles, cudaStream_t stream) {
+  constexpr int QC = 1;
   const size_t smem = sizeof(float) * size_t(QC) * D;
   static std::atomic<int> granted[hopper::kMaxDevices];
-  cudaError_t err = hopper::allow_smem(tile_max_kernel<T, QC>, int(smem), granted);
+  cudaError_t err = hopper::allow_smem(tile_max_kernel<T>, int(smem), granted);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_tiles, (Q + QC - 1) / QC);
-  tile_max_kernel<T, QC><<<grid, NTHREADS, smem, stream>>>(
+  tile_max_kernel<T><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(queries), static_cast<const T*>(corpus), valid, out, Q, D, tile_n,
       n_tiles);
   return cudaGetLastError();
@@ -309,21 +338,199 @@ cudaError_t launch_mma(const void* queries, const void* corpus, const uint8_t* v
   return cudaGetLastError();
 }
 
+// -- fp32, Q >= 2: register-blocked CUDA-core product -----------------------------
+
+constexpr int F_BK = 32;   // dims a stage
+constexpr int F_STAGES = 2;  // buffers in the cp.async ring
+
+// NTHREADS threads in NQG query groups of TN queries and NTHREADS / NQG
+// row groups of TM rows.
+template <int NQG, int TN, int TM>
+struct F32Shape {
+  static constexpr int LD = F_BK + 4;            // a staged row: 9 16-byte units (odd)
+  static constexpr int CPR = F_BK / 4;           // 16-byte chunks of a staged row
+  static constexpr int QC = NQG * TN;            // queries a block
+  static constexpr int NRG = NTHREADS / NQG;     // row groups
+  static constexpr int BM = NRG * TM;            // corpus rows a slab
+  static constexpr int STAGE = (BM + QC) * LD;   // floats a stage: rows, then queries
+  static constexpr int SMEM = F_STAGES * STAGE * int(sizeof(float));
+  static constexpr int MIN_BLOCKS = BM <= 256 ? 2 : 1;  // blocks an SM the registers allow
+};
+
+template <int NQG, int TN, int TM>
+__global__ void __launch_bounds__(NTHREADS, F32Shape<NQG, TN, TM>::MIN_BLOCKS)
+tile_max_fp32_kernel(const float* __restrict__ queries, const float* __restrict__ corpus,
+                     const uint8_t* __restrict__ valid, float* __restrict__ out, int Q, int D,
+                     int tile_n, int n_tiles, int n_chunks) {
+  using Sh = F32Shape<NQG, TN, TM>;
+  constexpr int LD = Sh::LD;
+  constexpr int CPR = Sh::CPR;
+  constexpr int QC = Sh::QC;
+  constexpr int NRG = Sh::NRG;
+  constexpr int BM = Sh::BM;
+  extern __shared__ __align__(16) float fsm[];
+  __shared__ float red[NWARPS][QC];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % NQG;  // queries tx + NQG * j
+  const int ty = tid / NQG;  // rows ty + NRG * i of each slab
+  // the chunks of one tile are neighbouring blocks: they share its rows in L2
+  const int chunk = blockIdx.x % n_chunks;
+  const int tile = blockIdx.x / n_chunks;
+  const int qbase = chunk * QC;
+  const int nq = min(QC, Q - qbase);
+  const size_t row0 = size_t(tile) * tile_n;
+  const int nk = (D + F_BK - 1) / F_BK;
+  const int steps = (tile_n + BM - 1) / BM * nk;
+
+  // Stage `step` (slab step / nk, dims (step % nk) * F_BK ..) into its
+  // buffer: rows past the tile, queries past Q and dims past D are zeros.
+  // Past the last step it commits an empty group, so that every step
+  // waits for the same count.
+  auto load = [&](int step) {
+    if (step < steps) {
+      const int slab = step / nk;
+      const int d0 = (step - slab * nk) * F_BK;
+      float* dst = fsm + (step % F_STAGES) * Sh::STAGE;
+      for (int i = tid; i < (BM + QC) * CPR; i += NTHREADS) {
+        const int r = i / CPR;
+        const int c = 4 * (i - r * CPR);
+        const int d = d0 + c;
+        const float* src = corpus;
+        bool in;
+        if (r < BM) {
+          const int rr = slab * BM + r;
+          in = rr < tile_n && d < D;
+          if (in) src = corpus + (row0 + rr) * size_t(D) + d;
+        } else {
+          const int qi = r - BM;
+          in = qi < nq && d < D;
+          if (in) src = queries + size_t(qbase + qi) * D + d;
+        }
+        hopper::cp_async16(hopper::smem_addr(dst + r * LD + c), src, in);
+      }
+    }
+    hopper::cp_async_commit();
+  };
+
+  float acc[TM][TN];
+  float best[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    best[j] = NEG_INF;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) acc[i][j] = 0.f;
+  }
+
+#pragma unroll
+  for (int s = 0; s < F_STAGES - 1; ++s) load(s);
+  for (int step = 0; step < steps; ++step) {
+    hopper::cp_async_wait<F_STAGES - 2>();
+    // This step's buffer is in shared memory for every warp, and every warp
+    // is done with the buffer the next load refills (the last step's).
+    __syncthreads();
+    load(step + F_STAGES - 1);
+
+    const float* as = fsm + (step % F_STAGES) * Sh::STAGE + ty * LD;
+    const float* bs = fsm + (step % F_STAGES) * Sh::STAGE + (BM + tx) * LD;
+#pragma unroll
+    for (int k = 0; k < F_BK; k += 4) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = *reinterpret_cast<const float4*>(as + i * NRG * LD + k);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(bs + j * NQG * LD + k);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+      }
+    }
+
+    const int slab = step / nk;
+    if (step - slab * nk == nk - 1) {  // the slab's dots are complete
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int r = slab * BM + ty + NRG * i;
+        const bool ok = r < tile_n && valid[row0 + r];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          best[j] = fmaxf(best[j], ok ? acc[i][j] : NEG_INF);
+          acc[i][j] = 0.f;
+        }
+      }
+    }
+  }
+  hopper::cp_async_wait<0>();
+
+  // The row groups of a warp (lanes with the same tx), then the warps.
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+#pragma unroll
+    for (int off = NQG; off < 32; off <<= 1)
+      best[j] = fmaxf(best[j], __shfl_xor_sync(0xffffffffu, best[j], off));
+  }
+  if ((tid & 31) < NQG) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) red[tid >> 5][tx + NQG * j] = best[j];
+  }
+  __syncthreads();
+  if (tid < nq) {
+    float m = red[0][tid];
+#pragma unroll
+    for (int w = 1; w < NWARPS; ++w) m = fmaxf(m, red[w][tid]);
+    out[size_t(qbase + tid) * n_tiles + tile] = m;
+  }
+}
+
+template <int NQG, int TN, int TM>
+cudaError_t launch_fp32(const void* queries, const void* corpus, const uint8_t* valid, float* out,
+                        int Q, int D, int tile_n, int n_tiles, cudaStream_t stream) {
+  using Sh = F32Shape<NQG, TN, TM>;
+  auto kernel = tile_max_fp32_kernel<NQG, TN, TM>;
+  static std::atomic<int> granted[hopper::kMaxDevices];
+  cudaError_t err = hopper::allow_smem(kernel, Sh::SMEM, granted);
+  if (err != cudaSuccess) return err;
+  const int n_chunks = (Q + Sh::QC - 1) / Sh::QC;
+  const long long blocks = static_cast<long long>(n_tiles) * n_chunks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  kernel<<<unsigned(blocks), NTHREADS, Sh::SMEM, stream>>>(static_cast<const float*>(queries),
+                                                     static_cast<const float*>(corpus), valid,
+                                                     out, Q, D, tile_n, n_tiles, n_chunks);
+  return cudaGetLastError();
+}
+
+// fp32 at Q >= 2: 4 x ceil(Q / 4) queries a block in 256-row slabs up to
+// 40 queries, then 64 queries in 512-row slabs.
+cudaError_t dispatch_fp32(const void* queries, const void* corpus, const uint8_t* valid,
+                          float* out, int Q, int D, int tile_n, int n_tiles, cudaStream_t stream) {
+  switch ((Q + 3) / 4) {
+#define CASE(TN) \
+  case TN:       \
+    return launch_fp32<4, TN, 4>(queries, corpus, valid, out, Q, D, tile_n, n_tiles, stream);
+    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8) CASE(9) CASE(10)
+#undef CASE
+    default:
+      return launch_fp32<4, 16, 8>(queries, corpus, valid, out, Q, D, tile_n, n_tiles, stream);
+  }
+}
+
 template <typename T>
 cudaError_t dispatch(const void* queries, const void* corpus, const uint8_t* valid, float* out,
                      int Q, int D, int tile_n, int n_tiles, cudaStream_t stream) {
-  // The smallest query chunk that holds every query, at most 16: a single
-  // query does not pay 16 queries' multiply-adds. bf16 at Q >= 2 runs on
-  // the tensor cores.
-  if (Q <= 1) return launch<T, 1>(queries, corpus, valid, out, Q, D, tile_n, n_tiles, stream);
+  // One query streams the corpus on the CUDA cores; bf16 at Q >= 2 runs on
+  // the tensor cores, fp32 at Q >= 2 on the register-blocked product.
+  if (Q <= 1) return launch<T>(queries, corpus, valid, out, Q, D, tile_n, n_tiles, stream);
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     if (Q <= 8) return launch_mma<1>(queries, corpus, valid, out, Q, D, tile_n, n_tiles, stream);
     return launch_mma<2>(queries, corpus, valid, out, Q, D, tile_n, n_tiles, stream);
   } else {
-    if (Q <= 2) return launch<T, 2>(queries, corpus, valid, out, Q, D, tile_n, n_tiles, stream);
-    if (Q <= 4) return launch<T, 4>(queries, corpus, valid, out, Q, D, tile_n, n_tiles, stream);
-    if (Q <= 8) return launch<T, 8>(queries, corpus, valid, out, Q, D, tile_n, n_tiles, stream);
-    return launch<T, 16>(queries, corpus, valid, out, Q, D, tile_n, n_tiles, stream);
+    return dispatch_fp32(queries, corpus, valid, out, Q, D, tile_n, n_tiles, stream);
   }
 }
 

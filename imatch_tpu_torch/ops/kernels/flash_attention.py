@@ -9,22 +9,27 @@ Contract (the same as the Pallas kernel's): ``(B, H, S, Dh)`` q, k, v in
 float32 or bfloat16; ``Dh ** -0.5`` applied in fp32; fp32 online softmax
 and accumulation; optional causal mask; keys at or past ``kv_len``
 (default S) are masked; a row with no visible key is 0; the output is in
-q's dtype. fp32 runs on the CUDA cores (no TF32: the fidelity path); bf16
-runs on the tensor cores with fp32 logits and accumulators, the
-probabilities rounded to bf16 before ``P @ V`` (at most 2^-9 relative
+q's dtype. fp32 runs on the CUDA cores (no TF32: the fidelity path) in
+``flash_fwd_fp32_kernel``, a register-blocked design; bf16 runs on the
+tensor cores (``flash_fwd_mma_kernel``) with fp32 logits and accumulators,
+the probabilities rounded to bf16 before ``P @ V`` (at most 2^-9 relative
 each, inside the bf16 bar the tests hold it to).
 
 ``flash_mha`` launches the kernel for CUDA tensors and uses
 ``flash_mha_plain`` only for CPU tensors. On a CUDA tensor it checks
 device, dtype, shape and layout and raises on anything the kernel does
 not take (head dims that are not a multiple of 8 in [8, 128], a head dim
-that is not contiguous; for bf16, rows that do not start 16-byte aligned,
-since the kernel copies them 16 bytes at a time); it never falls back.
+that is not contiguous, rows that do not start 16-byte aligned: both
+kernels copy rows 16 bytes at a time, so every base pointer must be a
+multiple of 16 bytes and every stride a multiple of 16 bytes, 4 fp32 or 8
+bf16 elements; fp32 has asked this since its kernel's redesign, which the
+towers' fused-QKV views meet); it never falls back.
 The kernel has no backward (nor has the Pallas kernel a VJP): on a CUDA
 input that requires grad, with grad mode on, the wrapper raises, since
 its output would carry no ``grad_fn``. Training takes ``mha_xla``
 (``ops/attention.py``).
-``flash_mha.launches`` counts kernel launches.
+``flash_mha.launches`` counts kernel launches, ``flash_mha.fp32_launches``
+those of the fp32 kernel among them.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from imatch_tpu_torch.ops.kernels import _build
 
 _NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 
 
 def flash_mha_plain(
@@ -102,17 +108,16 @@ def _check(q, k, v, kv_len):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous")
-    if q.dtype == torch.bfloat16:
-        # The bf16 kernel copies rows 16 bytes at a time: every base pointer
-        # a multiple of 16 bytes, every stride of a dim it steps along a
-        # multiple of 8 elements (bitwise or: this runs at every launch).
-        sq, sk, sv = q.stride(), k.stride(), v.stride()
-        steps = 0
-        for i in range(3):
-            if q.shape[i] > 1:
-                steps |= sq[i] | sk[i] | sv[i]
-        if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 or steps % 8:
-            raise ValueError("bf16 q, k and v rows must start 16-byte aligned")
+    # Both kernels copy rows 16 bytes at a time: every base pointer a
+    # multiple of 16 bytes, every stride of a dim they step along a multiple
+    # of 16 bytes (bitwise or: this runs at every launch).
+    sq, sk, sv = q.stride(), k.stride(), v.stride()
+    steps = 0
+    for i in range(3):
+        if q.shape[i] > 1:
+            steps |= sq[i] | sk[i] | sv[i]
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 or steps % (16 // q.element_size()):
+        raise ValueError(f"{_NAMES[q.dtype]} q, k and v rows must start 16-byte aligned")
     if not 0 <= kv_len <= q.shape[-2]:
         raise ValueError(f"kv_len {kv_len} outside [0, {q.shape[-2]}]")
     if q.shape[0] * q.shape[1] > 65535:
@@ -180,7 +185,10 @@ def flash_mha(
             rc = lib.flash_attention_fwd(*args)
     _build.check(lib, _NAME, rc)
     flash_mha.launches += 1
+    if q.dtype == torch.float32:
+        flash_mha.fp32_launches += 1
     return out
 
 
 flash_mha.launches = 0
+flash_mha.fp32_launches = 0

@@ -25,10 +25,14 @@ max per tile. It is bit-identical to ``tile_max_int8_plain``.
 CUDA tensors launch the kernel; CPU tensors use the plain versions. On a
 CUDA tensor the wrappers check device, dtype, shape, contiguity and
 16-byte alignment and raise rather than fall back. bf16 at Q >= 2 runs on
-the tensor cores (``tile_max_mma_kernel``); Q = 1 and fp32 on the CUDA
-cores. ``tile_max.launches`` and ``tile_max_int8.launches`` count the
-launches of each variant; ``tile_max.mma_launches`` counts those of
-``tile_max``'s that went to the tensor-core kernel.
+the tensor cores (``tile_max_mma_kernel``), fp32 at Q >= 2 on a
+register-blocked CUDA-core product (``tile_max_fp32_kernel``), Q = 1 in
+either dtype on the CUDA cores (``tile_max_kernel``); none of them asks
+more of its inputs than before. ``tile_max.launches`` and
+``tile_max_int8.launches`` count the launches of each variant;
+``tile_max.mma_launches`` and ``tile_max.fp32_mq_launches`` count those of
+``tile_max``'s that went to the tensor-core kernel and to the fp32
+multi-query kernel.
 """
 
 from __future__ import annotations
@@ -186,13 +190,17 @@ def tile_max(
         )
     _build.check(lib, _NAME, rc)
     tile_max.launches += 1
-    if scoring.dtype == torch.bfloat16 and queries.shape[0] >= 2:  # csrc dispatch
-        tile_max.mma_launches += 1
+    if queries.shape[0] >= 2:  # csrc dispatch
+        if scoring.dtype == torch.bfloat16:
+            tile_max.mma_launches += 1
+        else:
+            tile_max.fp32_mq_launches += 1
     return out
 
 
 tile_max.launches = 0
 tile_max.mma_launches = 0
+tile_max.fp32_mq_launches = 0
 
 
 def tile_max_int8(

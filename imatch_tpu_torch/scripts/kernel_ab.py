@@ -74,9 +74,9 @@ def kernel_key(name: str):
         return "K6"
     if "tile_max_int8_kernel" in name:
         return "K1_int8"
-    if "tile_max_kernel" in name or "tile_max_mma_kernel" in name:
+    if any(k in name for k in ("tile_max_kernel", "tile_max_mma_kernel", "tile_max_fp32_kernel")):
         return "K1"
-    if "flash_fwd_kernel" in name or "flash_fwd_mma_kernel" in name:
+    if any(k in name for k in ("flash_fwd_kernel", "flash_fwd_mma_kernel", "flash_fwd_fp32_kernel")):
         return "K2"
     if "quant_rows" in name:  # template <T, NV, LN> or <T, LN>: LN true is K4
         return "K4" if "true>" in name else "K3"

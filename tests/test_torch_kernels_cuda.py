@@ -131,6 +131,65 @@ def test_flash_attention_bf16_masks(cuda, shape, causal, kv_len):
 
 
 @pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1, 15, 17, 64, 65, 257, 729])
+@pytest.mark.parametrize("dh", [8, 16, 64, 72, 128])
+def test_flash_attention_fp32_cuda_cores(cuda, dh, s, causal):
+    """The fp32 CUDA-core kernel at every column class of its output
+    micro-tile (single columns only, float4s only, float4s and a single
+    column, 16-row warps past Dh = 72) and sequence lengths around its
+    32-row warps, 4-row groups and 64-key tiles, at B = 1 (one-warp
+    blocks), within 2e-5 of the plain version."""
+    q, k, v = _qkv((1, 3, s, dh), torch.float32, cuda, seed=s + dh)
+    before = (flash_mha.launches, flash_mha.fp32_launches)
+    out = flash_mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_mha.launches, flash_mha.fp32_launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out, flash_mha_plain(q, k, v, causal=causal), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize(
+    "shape,causal,kv_len",
+    [
+        ((1, 2, 257, 64), True, 100),  # causal and keys past kv_len masked
+        ((2, 4, 130, 72), True, 70),
+        ((1, 3, 65, 128), True, 1),
+        ((2, 3, 77, 72), False, 0),  # every key masked: rows write 0
+        ((1, 2, 17, 16), True, 0),
+        ((2, 3, 200, 8), False, 130),
+        ((8, 16, 257, 64), False, None),  # 4-warp blocks
+        ((8, 16, 257, 64), True, 190),
+        ((4, 16, 729, 72), False, 700),
+        ((8, 16, 65, 128), True, None),  # 4 warps of 16 rows
+    ],
+)
+def test_flash_attention_fp32_masks(cuda, shape, causal, kv_len):
+    q, k, v = _qkv(shape, torch.float32, cuda, seed=11)
+    before = flash_mha.fp32_launches
+    out = flash_mha(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert flash_mha.fp32_launches == before + 1
+    ref = flash_mha_plain(q, k, v, causal=causal, kv_len=kv_len)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    if kv_len == 0:
+        assert not bool(out.abs().max())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,h,dh", [(2, 50, 12, 64), (1, 257, 16, 64), (8, 257, 16, 64), (3, 77, 8, 72), (2, 729, 16, 72), (1, 1, 4, 72)])
+def test_flash_attention_fp32_reads_strided_heads(cuda, b, s, h, dh, causal):
+    """The fp32 towers' fused-QKV layout: (B, S, 3, H, Dh) views, read in
+    place by the fp32 kernel's 16-byte copies."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    qkv = torch.randn((b, s, 3, h, dh), generator=g, device=cuda)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    before = flash_mha.fp32_launches
+    out = flash_mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_mha.fp32_launches == before + 1
+    torch.testing.assert_close(out, flash_mha_plain(q, k, v, causal=causal), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("b,s,h,dh", [(2, 50, 12, 64), (1, 257, 16, 64), (3, 77, 8, 72), (1, 1, 4, 72)])
 def test_flash_attention_reads_strided_heads(cuda, b, s, h, dh, causal):
     """The fused-QKV layout the towers hand it: (B, S, 3, H, Dh) views."""
@@ -207,6 +266,14 @@ def test_flash_attention_raises_instead_of_falling_back(cuda):
     x = torch.zeros((1, 2, 16, 68), dtype=torch.bfloat16, device=cuda)[..., 4:]
     with pytest.raises(ValueError, match="16-byte aligned"):  # rows 136 bytes apart
         flash_mha(x, x, x)
+    # fp32 rows are copied 16 bytes at a time too (since the fp32 kernel's
+    # redesign): rows 264 bytes apart, or a base 8 bytes past a boundary
+    x = torch.zeros((1, 2, 16, 66), dtype=torch.float32, device=cuda)[..., 2:]
+    with pytest.raises(ValueError, match="fp32 q, k and v rows must start 16-byte aligned"):
+        flash_mha(x, x, x)
+    y = torch.zeros(2 * 16 * 64 + 2, dtype=torch.float32, device=cuda)[2:].view(1, 2, 16, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_mha(y, y, y)
     assert flash_mha.launches == before
 
 
@@ -391,6 +458,18 @@ def test_tile_max_t_matches_plain_and_k1(cuda, n, tile_n):
 
 
 def test_new_kernels_raise_instead_of_falling_back(cuda):
+    # K1's fp32 multi-query kernel takes what K1 took before its redesign:
+    # 16-byte aligned, contiguous rows of a dim that is a multiple of 8
+    before = (tile_max.launches, tile_max.fp32_mq_launches)
+    rows = torch.zeros((1024, 64), device=cuda)
+    ok = torch.ones(1024, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tile_max(torch.zeros(4 * 64 + 1, device=cuda)[1:].view(4, 64), rows, ok, 512)
+    with pytest.raises(ValueError, match="contiguous"):
+        tile_max(torch.zeros((64, 4), device=cuda).T, rows, ok, 512)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tile_max(torch.zeros((4, 60), device=cuda), torch.zeros((1024, 60), device=cuda), ok, 512)
+    assert (tile_max.launches, tile_max.fp32_mq_launches) == before
     before = (tile_max_int8.launches, int4_tile_max.launches, tile_max_t.launches)
     c8 = torch.zeros((1024, 24), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="multiple of 16"):
@@ -648,6 +727,57 @@ def test_tile_max_bf16_at_serving_query_counts(cuda, nq):
     assert (tile_max.launches, tile_max.mma_launches) == (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(got, tile_max_plain(qs, scoring, valid, 512), rtol=1e-5, atol=1e-5)
     assert (got[:, 1] == NEG_INF).all()
+
+
+@pytest.mark.parametrize("tile_n", [512, 2048])
+@pytest.mark.parametrize("d", [768, 200])
+@pytest.mark.parametrize("nq", [2, 3, 5, 9, 16, 17, 33, 64, 256])
+def test_tile_max_fp32_at_serving_query_counts(cuda, nq, d, tile_n):
+    """K1 in fp32 (IMATCH_SCORE_DTYPE=fp32) at Q >= 2, the register-blocked
+    CUDA-core kernel: chunks of 4 x ceil(Q/4) queries up to 40 and of 64
+    beyond (Q = 256: four chunks), a corpus dim that is not a multiple of
+    its 32-dim stages, and a tile with no valid row."""
+    corpus, valid = _unit_corpus(8192, d, cuda, seed=300 + nq + d)
+    valid[2048:4096] = False  # tile 1 at 2048, tiles 4-7 at 512
+    g = torch.Generator(device=cuda).manual_seed(nq)
+    qs = torch.randn((nq, d), generator=g, device=cuda)
+    qs /= qs.norm(dim=1, keepdim=True)
+    before = (tile_max.launches, tile_max.fp32_mq_launches, tile_max.mma_launches)
+    got = tile_max(qs, corpus, valid, tile_n)
+    torch.cuda.synchronize()
+    assert (tile_max.launches, tile_max.fp32_mq_launches, tile_max.mma_launches) == (before[0] + 1, before[1] + 1, before[2])
+    torch.testing.assert_close(got, tile_max_plain(qs, corpus, valid, tile_n), rtol=1e-5, atol=1e-5)
+    assert (got[:, 4096 // tile_n - 1] == NEG_INF).all()
+
+
+@pytest.mark.parametrize("nq", [2, 41])
+@pytest.mark.parametrize("tile_n", [8, 120, 600])
+def test_tile_max_fp32_tiles_below_a_slab(cuda, tile_n, nq):
+    """Tiles shorter than the fp32 kernel's 256-row slabs, or not a
+    multiple of them: rows past the tile are zero-filled and masked."""
+    corpus, valid = _unit_corpus(3000 // tile_n * tile_n, 64, cuda, seed=tile_n + nq)
+    qs = corpus[:nq].clone()
+    got = tile_max(qs, corpus, valid, tile_n)
+    torch.testing.assert_close(got, tile_max_plain(qs, corpus, valid, tile_n), rtol=1e-5, atol=1e-5)
+
+
+def test_tile_max_fp32_engine_at_the_batch_limit(cuda):
+    """The fidelity tier's engine (fp32 phase 1) at /api/search/batch's 256
+    queries: ids equal a full fp32 brute force up to near-ties (valid,
+    distinct rows whose full product is within 1e-5 of brute force's at
+    their rank), scores within 1e-5."""
+    corpus, valid = _unit_corpus(65536, 768, cuda, seed=5, dead=0.01)
+    queries = corpus[:256] + 0.1 * corpus[256:512]
+    queries /= queries.norm(dim=1, keepdim=True)
+    dc = prepare_device_corpus(corpus, valid, tile_n=512, score_dtype=torch.float32, device=cuda)
+    before = tile_max.fp32_mq_launches
+    s, i = tilemax_topk(queries, dc, k=10)
+    assert tile_max.fp32_mq_launches == before + 1
+    full = torch.where(valid[None, :], queries @ corpus.T, NEG_INF)
+    bs, _ = torch.sort(full, dim=1, descending=True, stable=True)
+    assert bool(valid[i].all()) and bool((torch.sort(i, dim=1).values.diff(dim=1) != 0).all())
+    assert float((full.gather(1, i) - bs[:, :10]).abs().max()) <= 1e-5
+    assert float((s - bs[:, :10]).abs().max()) <= 1e-5
 
 
 @pytest.mark.parametrize("nq", [2, 16, 33])
