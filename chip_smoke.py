@@ -6,7 +6,12 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py                 # every phase, the contract's lines
     python3 chip_smoke.py --phase NAME    # identify, build and one phase (PHASES below)
 
-Phases, in order; any failure exits non-zero and prints no result:
+Phases, by number; any failure exits non-zero and prints no result. A
+whole run takes them in number order up to 8h, then 10 and 11, then 8i,
+whose launch B (four processes training, saving and restoring) runs on
+while phase 12's process and phase 9 (neither reads a time) run beside
+it; 8i (d) and phase 12 are read last. So every time the kernels line
+prints (phases 3-5b, 10, 11) is taken on a quiet card:
 
 1. Identify the card (nvidia-smi name and power limit, torch and CUDA
    versions, whether PIL is installed).
@@ -127,7 +132,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    yes/no answers served in each mode, the prefill at B = 1 and 16, a
    decode step and the yes/no chunk timed in each mode and in bf16; the
    W8A8 service's caption and yes/no chunk hold K4 to one launch and K3 to
-   two a layer a prefill.
+   two a layer a prefill. Each stage's time is one warm call, then one
+   timed (the decode: a warm decode of 8 tokens, then 48 timed).
 8e. The tenth slice, the IVF tier and the sharded engines, on 2^17 rows
    of clustered unit vectors at LongCLIP's width (1448 centres plus noise,
    tombstones, duplicate rows); it runs after 8c, on slice 1's embedder.
@@ -197,8 +203,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    8g, on logical shards of cuda:0 (the machine holds one card: no run
    over several real cards takes place). (a) K2 at a tensor-parallel
    shard's head count, bf16, against its plain version: (2, 8, 729, 72),
-   (4, 8, 257, 64), causal (4, 6, 248, 64). (b) LongCLIP-L/14-248 at full
-   width and depth, one fp32 step (TF32 off) at B = 8 on a (2, 2) grid
+   (4, 8, 257, 64), causal (4, 6, 248, 64). (b) vit-b32 (phase 8i (d) steps
+   LongCLIP-L/14-248 on the (2, 2) grid, in one process and across four)
+   at full width and depth, one fp32 step (TF32 off) at B = 8 on a (2, 2) grid
    against one device from the same seed: the loss within
    ``PARALLEL_LOSS_RTOL``, the largest parameter difference printed. (c)
    3 bf16 steps at B = 32 on each: step ms, images/s, peak memory. (d)
@@ -212,25 +219,51 @@ Phases, in order; any failure exits non-zero and prints no result:
    width) captured and held against its plain version. (f) One more bf16
    step of (c)'s two states at B = 32 traced, on one device and on (2, 2):
    device busy ms, operations, idle share against (c)'s median step.
-8i. The fourteenth slice, the pipeline, sequence and process axes (the
-   step `scale`), after 8h, on logical shards of cuda:0. (a) Ring
-   attention, causal bf16: LongCLIP-L/14-248's text attention (32, 12,
-   248, 64) at P = 4 and 8 against K2 on the whole sequence, the fp32
-   plain version and ``mha_xla``, and (1, 16, 16384, 64) at P = 8 against
-   K2; each timed with K2 beside it, and its peak memory beside the (B, H,
-   S, S) fp32 logits it never holds. (b) GPipe over the 24 encoder layers
-   of LongCLIP-L's image tower, bf16, B = 32, at (P, M) = (2, 4) and (4,
-   8) against the unpipelined encoder: per-row cosine, K2 launched 24 x M
-   times (bubble ticks skipped), the first launch at each microbatch
-   shape held against its plain version, ms beside the unpipelined
-   tower's and the bubble fraction. (c) The multi-process dryrun
-   (imatch_tpu_torch/scripts/dryrun_multiprocess.py) in 2 processes x 2
-   shards of the card joined by gloo, 2^18 x 768 unit rows, 16 queries, k
-   10: exact against float64 numpy in each, K1 launched in each; one
-   query's ms and the all-gather's. (d) dryrun_multichip over 8 logical
-   shards of the card. (c) starts first and (d) runs while its workers
-   start (its log says whether their timings began after (d) ended);
-   (a) and (b) run after both, on a quiet card.
+8i. The pipeline, sequence and process axes (the step `scale`), after
+   8h, on logical shards of cuda:0; the processes are gloo processes sharing the card
+   (imatch_tpu_torch/scripts/dryrun_multiprocess.py, each checking every
+   path against what the same grid shape gives in one process, process 0
+   computing that answer). Launch A, 2 processes x 2 shards:
+   the ``sharded`` store and library call at 2^17 x 768 unit rows, 16
+   queries, k 10, exact against float64 numpy in each, K1 launched in
+   each, one query's ms and the all-gather's; then (a) the ``ivf-sharded``
+   store at 2^17 x 768 rows round 1448 centres: at a full probe bit for
+   bit ``sharded``, at IMATCH_IVF_NPROBE=8 the one-process 4-shard
+   engine's ids, a sidecar each process saves reloaded and repaired in
+   one process, an add through the append patch and a delete; query ms
+   at Q = 1 and 16 and the gather's share; (b) LongCLIP-L/14-248's towers
+   at mp = 2, one model shard a process, B = 16: K2 launched at (16, 8,
+   257, 64) in each and held against ``flash_mha_plain`` on the captured
+   input, cosine >= 0.9999 to the one-process mp = 2 forward and equal
+   top-10 ids; (c) the embedder's data axis, one shard a process, 16
+   frames: K2 at the data shard's (8, 16, 257, 64), top-10 ids equal to
+   one device's; (e) causal ring attention at (32, 12, 248, 64) bf16 over
+   4 positions (2 a process), output and gradient equal to the
+   one-process ring's, and GPipe over the 24 image layers, one stage a
+   process, B = 32, M = 4, equal to the one-process pipeline, K2 launched
+   12 x 4 times a process, its refusal under autograd; each timed beside
+   the one-process run. Launch B, (d), started with launch A: 4 processes
+   on the (2, 2) grid, two DP + TP steps of LongCLIP-L at half its depth
+   (12 image and 6 text layers, full width: the run's time limit) at B =
+   32 (bf16, fp32 masters), every worker's losses within rtol 1e-6 of the
+   one-process (2, 2) grid's from the same seed and batches (computed in
+   this process while the workers start); a checkpoint saved there (JAX's
+   keys, process 0 writing) restored by process 0 at mp = 1, equal to the
+   saved state; step ms, save and restore s. Launch B runs on (its save
+   and restore) beside phase 12's process and phase 9, and is read after
+   them (the step `scale_train`).
+   Beside launches A and B, in this process: dryrun_multichip over 8
+   logical shards of the card, then ring
+   attention causal bf16 at (32, 12, 248, 64), P = 4 and 8, against K2 on
+   the whole sequence, the fp32 plain version and ``mha_xla``, and (1,
+   16, 16384, 64) at P = 8 against K2 (each timed, K2 beside it, peak
+   memory beside the (B, H, S, S) fp32 logits it never holds); GPipe
+   over the 24 image layers in one process at (P, M) = (2, 4) and (4, 8)
+   against the unpipelined encoder (cosine, K2 launched 24 x M times, the
+   first launch at each microbatch shape held against its plain version,
+   ms beside the unpipelined tower's, the bubble fraction). Every timing
+   of the phase shares the card and the host with the parts running
+   beside it.
 9. A cut-depth vit-b32 tower on the card against the same weights on the
    CPU, bf16 and fp32; the fp32 towers' K2 launches are counted and the
    first at each shape held against the plain version (as in phase 7's
@@ -253,7 +286,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 12. POST /api/profile/start and /stop on a small app (vit-b32): 409s on
    misuse, and a trace file that holds K1's and K2's kernels. It runs in a
    process of its own (``chip_smoke.py --child profile``), whose first
-   trace is whole, on the kernels phase 2 built.
+   trace is whole, on the kernels phase 2 built; in a whole run it starts
+   after phase 8i and runs beside launch B's save and restore and phase
+   9 (it checks its own trace, not a time).
 
 The device breakdowns attribute profiler events to K1-K6 by kernel
 symbol (``kernel_key`` in imatch_tpu_torch/scripts/kernel_ab.py):
@@ -280,6 +315,8 @@ import io
 import json
 import math
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -1496,9 +1533,9 @@ def rebuild_and_patch(store, queries, dim, device) -> None:
 def restarts(root, embedder, queries, want, ids, device, journal_ops) -> None:
     """Restart twice (a journal replay of ``journal_ops`` ops, then a fresh
     snapshot with no journal), each answering ``queries`` with the ids
-    ``want`` as before;
-    then PUT /api/metadata persists across a restart and POST /api/reset
-    leaves an empty store after one."""
+    ``want`` as before; a PUT /api/metadata before the snapshot persists
+    across the second restart, and POST /api/reset leaves an empty store
+    after a third."""
     from imatch_tpu_torch.pipeline.state import AppState
     from imatch_tpu_torch.serving.app import create_app
 
@@ -1510,6 +1547,15 @@ def restarts(root, embedder, queries, want, ids, device, journal_ops) -> None:
     out["replay_s"] = out["last_load"]["replay_s"]
     out["journal_ops"] = state.store.stats()["journal_ops"]
     out["answers_equal_after_replay"] = state.store.query(queries, n_results=10)["ids"] == want
+    routes = {}
+    with ServerThread(create_app(state), port := _free_port()):
+        http = HttpClient(port)
+        status, body, routes["put_metadata_ms"] = http.request(
+            "PUT", f"/api/metadata/{ids[0]}", [("description", "edited on the card")]
+        )
+        assert status == 200 and body["metadata"]["description"] == "edited on the card", body
+        assert http.request("PUT", "/api/metadata/img_nope", [("description", "x")])[0] == 404
+        assert http.request("PUT", f"/api/metadata/{ids[0]}", [("custom_metadata", "x")])[0] == 422
     t = time.perf_counter()
     state.snapshot(force=True)
     out["snapshot_s"] = time.perf_counter() - t
@@ -1521,6 +1567,8 @@ def restarts(root, embedder, queries, want, ids, device, journal_ops) -> None:
     out["restart_from_snapshot_s"] = time.perf_counter() - t
     out["last_load_from_snapshot"] = state.store.stats()["last_load"]
     out["answers_equal_after_snapshot"] = state.store.query(queries, n_results=10)["ids"] == want
+    routes["metadata_after_restart"] = state.image_metadata[ids[0]]["description"]
+    assert routes["metadata_after_restart"] == "edited on the card", routes
     log("slice restarts: " + json.dumps(out))
     if not (
         out["answers_equal_after_replay"]
@@ -1532,20 +1580,6 @@ def restarts(root, embedder, queries, want, ids, device, journal_ops) -> None:
     ):
         raise AssertionError(f"a restart lost state: {out}")
 
-    routes = {}
-    with ServerThread(create_app(state), port := _free_port()):
-        http = HttpClient(port)
-        status, body, routes["put_metadata_ms"] = http.request(
-            "PUT", f"/api/metadata/{ids[0]}", [("description", "edited on the card")]
-        )
-        assert status == 200 and body["metadata"]["description"] == "edited on the card", body
-        assert http.request("PUT", "/api/metadata/img_nope", [("description", "x")])[0] == 404
-        assert http.request("PUT", f"/api/metadata/{ids[0]}", [("custom_metadata", "x")])[0] == 422
-    del state
-    gc.collect()
-    state = AppState(root=root, embedder=embedder, device=device)
-    routes["metadata_after_restart"] = state.image_metadata[ids[0]]["description"]
-    assert routes["metadata_after_restart"] == "edited on the card", routes
     with ServerThread(create_app(state), port := _free_port()):
         http = HttpClient(port)
         status, body, routes["reset_ms"] = http.request("POST", "/api/reset")
@@ -3351,6 +3385,7 @@ MD_INT8_MODES = {  # mode -> its environment, cumulative as the runtime composes
     "w8a8": {"IMATCH_MD_QUANT": "int8", "IMATCH_MD_CACHE": "int8", "IMATCH_MD_ACT": "int8"},
 }
 MD_VQA_CHUNK = 64
+MD_WARM_DECODE = 8  # tokens of the warm decode before a mode's timed one
 # cosine bars: tests/test_moondream.py:224 (int8 weights against bf16 weights),
 # :359 (the first decode step through the int8 cache) and :489 (W8A8
 # against weight-only int8)
@@ -3367,30 +3402,32 @@ def _row_cosines(a, b):
 
 def md_mode_times(svc, feats1, tokens1, feats16, tokens16, batch64, device) -> dict:
     """A mode's stages, warm, host ms of calls that end on the host: the
-    caption prefill at B = 1 and 16 (the cache built), one decode step (the
-    mean of a 48-token greedy decode), the yes/no chunk of 64."""
+    caption prefill at B = 1 and 16 (the cache built; one warm call, one
+    timed), one decode step (the mean of a 48-token greedy decode, after a
+    warm decode of MD_WARM_DECODE tokens into a cache of the same size),
+    the yes/no chunk of 64."""
     from imatch_tpu_torch.models.moondream.generate import greedy_generate
 
     t = {}
-    _, t["prefill_b1_ms"] = _timed(lambda: svc._prefill(feats1, tokens1, 48), device)
-    _, t["prefill_b16_ms"] = _timed(lambda: svc._prefill(feats16, tokens16, 48), device, 2)
+    _, t["prefill_b1_ms"] = _timed(lambda: svc._prefill(feats1, tokens1, 48), device, 1)
+    _, t["prefill_b16_ms"] = _timed(lambda: svc._prefill(feats16, tokens16, 48), device, 1)
     state = {}
 
-    def decode():
+    def decode(max_new):
         logits, cache, pos = svc._prefill(feats1, tokens1, 48)
         _sync(device)
         t0 = time.perf_counter()
-        result = greedy_generate(svc.model, logits, cache, pos, max_new=48)
+        result = greedy_generate(svc.model, logits, cache, pos, max_new=max_new)
         result.tokens.cpu()
         state["ms"] = (time.perf_counter() - t0) * 1e3
         state["steps"] = int(result.lengths.max()) - 1  # the first token comes from the prefill
 
-    decode()
-    decode()
+    decode(MD_WARM_DECODE)
+    decode(48)
     t["decode_step_ms"] = state["ms"] / max(1, state["steps"])
     t["decode_steps"] = state["steps"]
     q = "Yes or No: " + MD_FILTER
-    _, t["yes_no_b64_ms"] = _timed(lambda: svc.query_yes_no_batch(batch64, q), device, 2)
+    _, t["yes_no_b64_ms"] = _timed(lambda: svc.query_yes_no_batch(batch64, q), device, 1)
     return t
 
 
@@ -5133,7 +5170,8 @@ def phase_parallel(device="cuda") -> dict:
 
     k2_rows = [k2_case(shape, causal, torch.bfloat16) for shape, causal in K2_TP_CASES]
     mark("a")
-    train, train_ok, kept = parallel_train_check(device)
+    # vit-b32: phase 8i (d) steps LongCLIP-L on the (2, 2) grid
+    train, train_ok, kept = parallel_train_check(device, config=TRAIN_CONFIG)
     log("parallel train: " + json.dumps(train))
     mark("b, c")
     md, md_ok = parallel_md_check(device)
@@ -5144,7 +5182,7 @@ def phase_parallel(device="cuda") -> dict:
     embed, embed_ok, launches = parallel_embed_check(device)
     log("parallel embedder: " + json.dumps(embed))
     mark("e")
-    log("parallel trace: " + json.dumps(parallel_trace_check(device, train, kept)))
+    log("parallel trace: " + json.dumps(parallel_trace_check(device, train, kept, config=TRAIN_CONFIG)))
     mark("f")
     log(f"phase 8h: {time.perf_counter() - t0:.1f} s (by part: {seconds}); {torch.cuda.device_count()} "
         "card(s) visible, so no run over several real cards took place")
@@ -5169,7 +5207,21 @@ SCALE_RING_CASES = [((32, 12, 248, 64), (4, 8)), ((1, 16, 16384, 64), (8,))]  # 
 SCALE_PIPE = [(2, 4), (4, 8)]  # (stages, microbatches)
 SCALE_PIPE_BATCH = 32
 SCALE_PIPE_MIN_COSINE = 0.9999  # per (image, token) row, pipelined against the unpipelined encoder
-SCALE_MP = {"procs": 2, "local-devices": 2, "rows": 1 << 18, "dim": 768, "queries": 16, "k": 10}
+# launch A: the sharded store, ivf-sharded, the TP forward, the embedder, the ring and GPipe
+SCALE_MP = {
+    "procs": 2, "local-devices": 2, "rows": 1 << 17, "dim": 768, "queries": 16, "k": 10,
+    "paths": "sharded,ivf,tp,embed,ring,gpipe", "centres": 1448, "config": "longclip-l14-248",
+    "batch": 16, "mp": 2, "ring": "32,12,248,64", "pipe-batch": 32, "microbatches": 4,
+}  # fmt: skip
+# launch B: two DP + TP steps on the (2, 2) grid and the checkpoint, at
+# half LongCLIP-L's depth (12 image, 6 text layers; full width): the run's
+# time limit
+SCALE_TRAIN = {
+    "procs": 4, "paths": "train", "config": "longclip-l14-248", "train-layers": "12,6", "train-batch": 32,
+    "steps": 2, "mp": 2, "reference": "caller",
+}  # fmt: skip
+SCALE_TRAIN_SEED = 0  # the dryrun's --seed: its init and clip_batch(..., seed + 100 + step)
+SCALE_TRAIN_RTOL = 1e-6  # launch B's losses against the one-process (2, 2) grid's
 SCALE_MP_TIMEOUT = 300
 SCALE_MULTICHIP_SHARDS = 8
 
@@ -5308,26 +5360,85 @@ def gpipe_check(device, config=SLICE_CONFIG) -> tuple:
     return out, ok, launches
 
 
-def multiprocess_start():
-    """(c) The port's multi-process dryrun on the card, started: its
-    launcher and workers load the kernels phase 2 built. The launcher
-    stops its workers at SCALE_MP_TIMEOUT."""
+def _max_rss_gb() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def _scale_out(cfg) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", f"chip_smoke_scale_{cfg['procs']}")
+
+
+def multiprocess_start(cfg=SCALE_MP):
+    """A launch of the port's multi-process dryrun on the card, started:
+    its launcher and workers load the kernels phase 2 built, and keep
+    their files (launch B's checkpoint) under build/. The launcher stops
+    its workers at SCALE_MP_TIMEOUT."""
     cmd = [sys.executable, "-m", "imatch_tpu_torch.scripts.dryrun_multiprocess", "--device", "cuda"]
-    cmd += [a for key, val in SCALE_MP.items() for a in ((f"-{key}" if key == "k" else f"--{key}"), str(val))]
-    cmd += ["--timeout", str(SCALE_MP_TIMEOUT)]
+    cmd += [a for key, val in cfg.items() for a in ((f"-{key}" if key == "k" else f"--{key}"), str(val))]
+    cmd += ["--timeout", str(SCALE_MP_TIMEOUT), "--out", _scale_out(cfg)]
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, start_new_session=True
+    )
+    proc.session = True  # ``_stop`` kills its workers with it
+    return proc
 
 
-def multiprocess_finish(proc) -> tuple:
-    """(c) Its output read: each worker's JSON line, and whether it passed
-    (rc 0, the OK line, K1 launched in each)."""
+def _stop(proc) -> None:
+    """``proc`` killed if it still runs; a launch (a session of its own,
+    ``multiprocess_start``) with every process in it, so that no worker
+    outlives this script."""
+    if getattr(proc, "session", False):
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:  # the launch and its workers are gone
+            pass
+    elif proc.poll() is None:
+        proc.kill()
+    proc.wait()
+
+
+def _held_at(row, shape) -> bool:
+    """K2 launched on the path, and its launch at ``shape`` held against
+    its plain version."""
+    held = row.get("k2_held", {}).get("x".join(map(str, shape)))
+    return row.get("k2_launches", 0) > 0 and held is not None and held["ok"]
+
+
+def _paths_ok(w) -> bool:
+    """Launch A's paths as the contract reads them, beside the worker's
+    own checks: K1 in the sharded path, K2 at the TP shard's, the
+    embedder's data shard's and GPipe's microbatch shapes, GPipe's launch
+    count, the ring's equality."""
+    vc_heads, seq = 16, 257  # LongCLIP-L/14-248's image tower
+    per = SCALE_MP["batch"] // SCALE_MP["procs"]
+    mb = SCALE_MP["pipe-batch"] // SCALE_MP["microbatches"]
+    return (
+        w["k1_launches"] + w["k1_mma_launches"] > 0
+        and w["ivf"]["sidecar_modes"] == ["repair", "repair"]
+        and _held_at(w["tp"], (SCALE_MP["batch"], vc_heads // SCALE_MP["mp"], seq, 64))
+        and w["tp"]["min_cosine"] >= 0.9999 and w["tp"]["top10_equal"]
+        and _held_at(w["embed"], (per, vc_heads, seq, 64)) and w["embed"]["top10_equal_one_device"]
+        and w["ring"]["equal"]
+        and w["gpipe"]["equal"] and w["gpipe"]["grad_refused"]
+        and _held_at(w["gpipe"], (mb, vc_heads, seq, 64))
+        and w["gpipe"]["k2_launches"] == 24 // SCALE_MP["procs"] * SCALE_MP["microbatches"]
+    )  # fmt: skip
+
+
+def multiprocess_finish(proc, cfg=SCALE_MP, keep=False) -> tuple:
+    """A launch's output read: each worker's JSON line, and whether it
+    passed (rc 0, the OK line, every worker's line, and for launch A the
+    paths' launches and checks, ``_paths_ok``). Its files are removed
+    unless ``keep``."""
     try:
         stdout, stderr = proc.communicate(timeout=SCALE_MP_TIMEOUT + 60)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        _stop(proc)
+        if not keep:
+            shutil.rmtree(_scale_out(cfg), ignore_errors=True)
     workers = {}
     for line in stdout.splitlines():
         if line.startswith("[proc ") and "] {" in line:
@@ -5336,20 +5447,69 @@ def multiprocess_finish(proc) -> tuple:
     ok = (
         proc.returncode == 0
         and "MULTIPROCESS DRYRUN OK" in stdout
-        and sorted(workers) == list(range(SCALE_MP["procs"]))
-        and all(w["k1_launches"] + w["k1_mma_launches"] > 0 for w in workers.values())
+        and sorted(workers) == list(range(cfg["procs"]))
+        and (cfg is not SCALE_MP or all(_paths_ok(w) for w in workers.values()))
     )
-    if not ok:
+    if not ok:  # each worker's errors, then the end of the output
+        log("\n".join(line for line in stdout.splitlines() if "Error" in line or "exited" in line)[-6000:])
         log(stdout[-4000:] + stderr[-4000:])
-    return {"rc": proc.returncode, "config": SCALE_MP, "workers": workers}, ok
+    return {"rc": proc.returncode, "config": cfg, "workers": workers}, ok
 
 
-def phase_scale(device="cuda") -> dict:
-    """Phase 8i: (c) the multi-process dryrun started, (d) dryrun_multichip
-    over SCALE_MULTICHIP_SHARDS logical shards of the card while (c)'s
-    workers start (its K1 and K2 launches counted; (c)'s log says whether
-    its timings began after (d) ended), (c) read, then (a) ``ring_check``
-    and (b) ``gpipe_check`` on a quiet card. Each part raises on failure;
+def scale_train_reference(device) -> tuple:
+    """(d)'s one-process answer: SCALE_TRAIN's steps on the (2, 2) grid of
+    logical shards of the card, from launch B's seed and batches (the
+    dryrun's ``clip_batch``), bf16 over fp32 masters. Returns its losses
+    and step ms."""
+    import torch
+
+    from imatch_tpu_torch.parallel import init_train_state, make_train_step
+    from imatch_tpu_torch.parallel.mesh import Grid
+    from imatch_tpu_torch.parallel.train import make_optimizer
+    from imatch_tpu_torch.scripts.dryrun_multiprocess import clip_batch, train_config
+
+    cfg, mp = train_config(SCALE_TRAIN["config"], SCALE_TRAIN["train-layers"]), SCALE_TRAIN["mp"]
+    tx = make_optimizer()
+    grid = Grid([device] * SCALE_TRAIN["procs"], mp)
+    state, _ = init_train_state(SCALE_TRAIN_SEED, cfg, tx, mesh=grid)
+    step = make_train_step(cfg, tx, mesh=grid, dtype=torch.bfloat16)
+    out = {"losses": [], "step_ms": []}
+    for i in range(SCALE_TRAIN["steps"]):
+        px, tok = clip_batch(cfg, SCALE_TRAIN["train-batch"], SCALE_TRAIN_SEED + 100 + i)
+        t = time.perf_counter()
+        state, loss = step(state, px, tok)
+        out["losses"].append(float(loss))
+        out["step_ms"].append((time.perf_counter() - t) * 1e3)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def scale_train_finish(proc, ref) -> tuple:
+    """(d) read, after the phases that run while launch B saves and
+    restores: its workers' lines (process 0's restore at mp = 1 held to
+    the saved state bit for bit, their own check), and every worker's
+    losses within SCALE_TRAIN_RTOL of the one-process grid's ``ref``."""
+    train, ok = multiprocess_finish(proc, SCALE_TRAIN)
+    losses = [w["train"]["losses"] for w in train["workers"].values()]
+    ok = ok and bool(losses) and all(
+        abs(a - b) <= SCALE_TRAIN_RTOL * abs(b) for got in losses for a, b in zip(got, ref["losses"])
+    )
+    train["one_process"] = ref
+    return train, ok
+
+
+def phase_scale(ctx, device="cuda") -> dict:
+    """Phase 8i: launches A and B started together; in this process while
+    they run, ``scale_train_reference``, dryrun_multichip over
+    SCALE_MULTICHIP_SHARDS logical shards of the card (its K1 and K2
+    launches counted; launch A's log says whether its timings began after
+    it ended), ``ring_check`` and ``gpipe_check``; launch A read. Launch B
+    runs on through the next phases (its save and restore) and is read by
+    the step ``scale_train`` (``ctx["scale_train"]``: its process and the
+    one-process answer). Every timing in the phase shares the card and the
+    host with the other parts running then. Each part raises on failure;
     none is caught."""
     import torch
 
@@ -5359,42 +5519,52 @@ def phase_scale(device="cuda") -> dict:
     from imatch_tpu_torch.scripts.dryrun_multichip import dryrun_multichip
 
     t0 = time.perf_counter()
-    log(f"phase 8i on {card(torch.device(device))}")
-    proc = multiprocess_start()
+    log(f"phase 8i on {card(torch.device(device))}; this process's peak host memory so far {_max_rss_gb():.2f} GB")
+    proc, train_proc = multiprocess_start(), multiprocess_start(SCALE_TRAIN)
+    ctx["background"].append(train_proc)  # stopped by main if a later phase fails
     try:
-        before = (tile_max.launches, tile_max.mma_launches, flash_mha.launches)
-        chip = dryrun_multichip(SCALE_MULTICHIP_SHARDS, device)
-        _sync(device)
-        chip_ended = time.time()
-        chip["seconds"] = time.perf_counter() - t0
-        k1, k1_mma, k2 = (a - b for a, b in zip((tile_max.launches, tile_max.mma_launches, flash_mha.launches), before))
-    finally:
-        mp, mp_ok = multiprocess_finish(proc)
-    chip.update(k1_launches=k1, k1_mma_launches=k1_mma, k2_launches=k2)
-    log("scale multichip: " + json.dumps(chip))
-    if k1 + k1_mma == 0 or k2 == 0:
-        raise AssertionError("phase 8i (d) failed: dryrun_multichip launched no K1 or no K2")
-    mp["seconds"] = time.perf_counter() - t0
-    mp["timings_after_multichip"] = all(w.get("timing_started_at", 0) > chip_ended for w in mp["workers"].values())
-    log("scale multiprocess: " + json.dumps(mp))
-    if not mp_ok:
-        raise AssertionError("phase 8i (c) failed: the multi-process dryrun")
-    ring, ring_ok = ring_check(device)
-    log("scale ring: " + json.dumps(ring))
+        try:
+            # while the workers start: (d)'s one-process answer, then dryrun_multichip
+            ref = scale_train_reference(torch.device(device))
+            ref["seconds"] = time.perf_counter() - t0
+            before = (tile_max.launches, tile_max.mma_launches, flash_mha.launches)
+            chip = dryrun_multichip(SCALE_MULTICHIP_SHARDS, device)
+            _sync(device)
+            chip_ended = time.time()
+            chip["seconds"] = time.perf_counter() - t0
+            k1, k1_mma, k2 = (a - b for a, b in zip((tile_max.launches, tile_max.mma_launches, flash_mha.launches), before))
+            ring, ring_ok = ring_check(device)
+            log("scale ring: " + json.dumps(ring))
+            gc.collect()
+            torch.cuda.empty_cache()
+            pipe, pipe_ok, k2_pipe = gpipe_check(device)
+            log("scale gpipe: " + json.dumps(pipe))
+        finally:
+            mp, mp_ok = multiprocess_finish(proc)
+        chip.update(k1_launches=k1, k1_mma_launches=k1_mma, k2_launches=k2)
+        log("scale multichip: " + json.dumps(chip))
+        if k1 + k1_mma == 0 or k2 == 0:
+            raise AssertionError("phase 8i failed: dryrun_multichip launched no K1 or no K2")
+        mp["seconds"] = time.perf_counter() - t0
+        mp["timings_after_multichip"] = all(w.get("timing_started_at", 0) > chip_ended for w in mp["workers"].values())
+        log("scale multiprocess: " + json.dumps(mp))
+        if not mp_ok:
+            raise AssertionError("phase 8i (a)-(c), (e) failed: launch A of the multi-process dryrun")
+    except BaseException:
+        multiprocess_finish(train_proc, SCALE_TRAIN)
+        raise
+    ctx["scale_train"] = (train_proc, ref, t0)
     if not ring_ok:
-        raise AssertionError("phase 8i (a) failed: ring attention")
-    gc.collect()
-    torch.cuda.empty_cache()
-    pipe, pipe_ok, k2_pipe = gpipe_check(device)
-    log("scale gpipe: " + json.dumps(pipe))
+        raise AssertionError("phase 8i failed: ring attention in one process")
     if not pipe_ok:
-        raise AssertionError("phase 8i (b) failed: gpipe")
-    log(f"phase 8i: {time.perf_counter() - t0:.1f} s; {torch.cuda.device_count()} card(s) visible")
+        raise AssertionError("phase 8i failed: gpipe in one process")
+    log(f"phase 8i: {time.perf_counter() - t0:.1f} s, launch B running on; {torch.cuda.device_count()} card(s) visible")
     workers = mp["workers"].values()
+    k2_mp = sum(w[p]["k2_launches"] for w in workers for p in ("tp", "embed", "gpipe"))
     return {
         "K1": k1 + sum(w["k1_launches"] for w in workers),
         "K1_mma": k1_mma + sum(w["k1_mma_launches"] for w in workers),
-        "K2": k2_pipe + k2,
+        "K2": k2_pipe + k2 + k2_mp,
     }
 
 
@@ -5645,20 +5815,31 @@ def phase_profile(device="cuda") -> dict:
     return out
 
 
-def phase_profile_apart() -> None:
+def profile_start(ctx) -> None:
+    """Phase 12's process started, to run beside launch B's save and
+    restore and phase 9 (its checks read its own app's trace, not a
+    time); the step ``profile`` reads it."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--child", "profile"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    ctx["background"].append(proc)
+    ctx["profile"] = (proc, time.perf_counter())
+
+
+def phase_profile_apart(ctx) -> None:
     """Phase 12 in a process of its own: its check reads the app's profiler
     trace, and this long process's late traces drop events (kernel_ab.py's
-    ``trace``). The child loads the kernels phase 2 built."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--child", "profile"],
-        capture_output=True,
-        text=True,
-        timeout=600,
-    )
-    sys.stdout.write(proc.stdout)
-    sys.stderr.write(proc.stderr[-4000:])
-    log(f"phase 12 (own process): rc {proc.returncode}, {time.perf_counter() - t0:.1f} s")
+    ``trace``). The child loads the kernels phase 2 built; it is the one
+    ``profile_start`` started, or one started here."""
+    if "profile" not in ctx:
+        profile_start(ctx)
+    proc, t0 = ctx.pop("profile")
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        _stop(proc)
+    sys.stdout.write(stdout)
+    sys.stderr.write(stderr[-4000:])
+    log(f"phase 12 (own process): rc {proc.returncode}, {time.perf_counter() - t0:.1f} s since its start")
     if proc.returncode != 0:
         raise AssertionError(f"phase 12 failed in its own process (rc {proc.returncode})")
 
@@ -5955,7 +6136,19 @@ def step_parallel(ctx) -> None:
 
 
 def step_scale(ctx) -> None:
-    _add_launches(ctx, **phase_scale())
+    _add_launches(ctx, **phase_scale(ctx))
+
+
+def step_scale_train(ctx) -> None:
+    """Phase 8i (d), launch B, read where it ran beside the later phases."""
+    if "scale_train" not in ctx:
+        raise RuntimeError("the step scale_train reads the launch the step scale started: run --phase scale")
+    proc, ref, t0 = ctx.pop("scale_train")
+    train, ok = scale_train_finish(proc, ref)
+    train["seconds_since_phase_8i"] = time.perf_counter() - t0
+    log("scale train over processes: " + json.dumps(train))
+    if not ok:
+        raise AssertionError("phase 8i (d) failed: launch B, DP + TP training over 4 processes")
 
 
 def step_scripts(ctx) -> None:
@@ -5982,12 +6175,19 @@ PHASES = {
     "md_int8": step_md_int8,
     "train": lambda ctx: phase_train(),
     "parallel": step_parallel,
-    "scale": step_scale,
-    "reference": lambda ctx: _add_launches(ctx, K2_fp32=phase_reference()),
+    # phases 10 and 11 on a quiet card, before phase 8i starts its launches
     "scripts": step_scripts,
     "device": lambda ctx: phase_device(ctx["rows"]),
-    "profile": lambda ctx: phase_profile_apart(),
+    "scale": step_scale,
+    # beside phase 8i's launch B, which runs on: phase 12's own process and
+    # phase 9 (neither reads a time)
+    "profile_start": profile_start,
+    "reference": lambda ctx: _add_launches(ctx, K2_fp32=phase_reference()),
+    "scale_train": step_scale_train,
+    "profile": phase_profile_apart,
 }
+# a step that reads what another started runs with it
+FOLLOWS = {"scale": ("scale_train",), "profile_start": ("profile",)}
 
 
 def main(only=None) -> int:
@@ -6005,14 +6205,18 @@ def main(only=None) -> int:
     # phase 6b runs the app's warmup itself, timed: the apps' background
     # warmup would launch kernels inside the other phases' counted windows
     os.environ["IMATCH_WARMUP"] = "0"
-    ctx = {"rows": {}, "launches": {}}
-    names = list(PHASES) if only is None else list(dict.fromkeys(("identify", "build", only)))
-    for name in names:
-        t_phase = time.perf_counter()
-        PHASES[name](ctx)
-        gc.collect()  # each phase's apps and stores
-        torch.cuda.empty_cache()
-        log(f"chip_smoke step {name}: {time.perf_counter() - t_phase:.1f} s")
+    ctx = {"rows": {}, "launches": {}, "background": []}
+    names = list(PHASES) if only is None else list(dict.fromkeys(("identify", "build", only, *FOLLOWS.get(only, ()))))
+    try:
+        for name in names:
+            t_phase = time.perf_counter()
+            PHASES[name](ctx)
+            gc.collect()  # each phase's apps and stores
+            torch.cuda.empty_cache()
+            log(f"chip_smoke step {name}: {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        for proc in ctx["background"]:  # a launch a failed phase left running
+            _stop(proc)
     if only is not None:
         log(f"chip_smoke --phase {only}: passed in {time.perf_counter() - t0:.1f} s")
         return 0

@@ -62,7 +62,10 @@ build's bit for bit. ``tilemax-host`` brings them to the host first (JAX
   would go stale), as in JAX.
 - ``ivf-sharded`` (``ShardedIVF``, parallel/dist_ivf.py): append (each
   shard's rows against its own centroids, into its table of local ids;
-  the cluster becomes ``nonempty``) and delete; updates fall back.
+  the cluster becomes ``nonempty``) and delete; updates fall back. Over
+  a grid that spans processes a shard another process owns has its rows
+  assigned and its fill counted here too (the host state is replicated),
+  and only the owner writes its table.
 
 An IVF append returns the host bookkeeping it changed beside the state:
 the rows' unpruned (for the sharded kind, shard-local) cluster ids for
@@ -249,25 +252,31 @@ def _ivf_append(state, host, slots: np.ndarray, rows, in_place: bool):
 def _ivf_sharded_append(state, host, slots: np.ndarray, rows, in_place: bool):
     """Sharded IVF append: each shard's rows assigned against its own
     centroids and written into its table. Returns ``(new_state, (shard-
-    local clusters, {shard: new fill}))`` or None."""
+    local clusters, {shard: new fill}))`` or None. A shard another process
+    owns (None here) has its rows assigned on a local device and its fill
+    counted, so the host state stays replicated; its table is that
+    process's to write. Every shard's table has one width."""
     if host is None or "counts" not in host:
         return None
+    mine = [ix for ix in state.shards if ix is not None]
+    width, local_dev = mine[0].members.shape[1], mine[0].corpus.device
     cl = np.empty((slots.shape[0],), np.int32)
     plan = []
     for s, sel, local in _by_shard(slots, state.rows):
         ix = state.shards[s]
-        rows_s = _rows_f32(_take(rows, sel), ix.corpus.device)
+        rows_s = _rows_f32(_take(rows, sel), local_dev if ix is None else ix.corpus.device)
         cl[sel] = _ivf.assign_rows(rows_s, host["cents"][s])
         counts = host["counts"][s]
         pos = _insert_positions(cl[sel], counts[cl[sel]])
-        if np.any(pos >= ix.members.shape[1]):
+        if np.any(pos >= width):
             return None
         plan.append((s, sel, local, rows_s, pos))
     shards, masks, counts_upd = list(state.shards), list(state.nonempty), {}
     for s, sel, local, rows_s, pos in plan:
         c = cl[sel].astype(np.int64)
-        shards[s] = _ivf_rows(shards[s], local, rows_s, c * shards[s].members.shape[1] + pos, in_place)
-        masks[s] = _flag(masks[s], c, True, in_place)
+        if shards[s] is not None:
+            shards[s] = _ivf_rows(shards[s], local, rows_s, c * width + pos, in_place)
+            masks[s] = _flag(masks[s], c, True, in_place)
         nc = host["counts"][s].copy()
         np.add.at(nc, c, 1)
         counts_upd[s] = nc

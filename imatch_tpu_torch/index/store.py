@@ -36,7 +36,13 @@ cosine *distance* ``1 - cos`` like a chroma cosine collection
   variant. Score dtypes bf16 (default), fp32 and int8.
 - The mesh (parallel/mesh.py): ``mesh=`` (devices in shard order, a
   device may repeat), by default every visible CUDA device for a store on
-  the card and the store's device alone on the CPU.
+  the card and the store's device alone on the CPU. A grid that spans
+  processes (parallel/distributed.py) serves ``sharded`` and
+  ``ivf-sharded``: every process holds the whole host state and makes the
+  same calls, each builds, patches and searches only its own shards and
+  exchanges candidates (and, for ``ivf-sharded``, its shards' host state)
+  over the process group. A sidecar any process writes loads in a
+  one-process store over the same shard count, which repairs it.
 - The IVF host state (``_ivf_host``: trained centroids, each slot's
   cluster, the live count at the last k-means) outlives the device state:
   a build after mutations REPAIRS the index (assigns only unassigned rows

@@ -34,6 +34,18 @@ over its own heads (K2 at ``(B, H / M, S, Dh)`` when serving) and its MLP
 slice on its device, and one reduce at the attention block's output and
 one at the MLP's (ops/collectives.py), the row-split biases added once
 after each. The Moondream vision tower reuses ``Encoder``.
+
+Over a model row that spans processes (``shard_model`` given a grid that
+does, parallel/sharding.py) a process holds only its own model shards
+(and a replica of every replicated leaf), and the model's ``row_group``
+is the row's process group: each process runs its heads and its MLP
+slice, each block's one reduce is the ordered all-reduce over the group
+(``reduce_sum``, whose shard order makes the sum the one-process grid's),
+and the normalized stream enters the column-split projections through
+``enter``, whose backward sums its gradient over the group (Megatron's
+pair). The serving forward (K2 at ``(B, H / M, S, Dh)``) and
+``clip_forward`` (training, ``mha_xla``) both take this form, and every
+process of the row returns the same tensors.
 """
 
 from __future__ import annotations
@@ -47,7 +59,7 @@ from torch.func import functional_call
 
 from imatch_tpu_torch.models.clip.configs import CLIPConfig, TextConfig, VisionConfig
 from imatch_tpu_torch.ops.attention import mha
-from imatch_tpu_torch.ops.collectives import reduce_sum
+from imatch_tpu_torch.ops.collectives import enter, reduce_sum
 
 
 class LayerNorm32(nn.LayerNorm):
@@ -125,25 +137,27 @@ class EncoderLayer(nn.Module):
         causal: bool,
         attn_impl: str = "auto",
         peers: Sequence["EncoderLayer"] = (),
+        group=None,
     ) -> torch.Tensor:
-        """``peers``: the other model shards' slices of this layer, in
-        shard order (none on one device)."""
-        if not peers:
+        """``peers``: this process's other model shards' slices of this
+        layer, in shard order (none on one device); ``group``: the model
+        row's process group where the row spans processes."""
+        if not peers and group is None:
             h = h + self.out(self.attention(self.ln1(h), causal, attn_impl))
             return h + self.fc2(_act(self.fc1(self.ln2(h)), self.act))
         shards = (self, *peers)
-        y = self.ln1(h)
+        y = enter(self.ln1(h), group)
         parts = [
             F.linear(s.attention(y.to(s.qkv.weight.device), causal, attn_impl), s.out.weight)
             for s in shards
         ]
-        h = h + reduce_sum(parts, h.device) + self.out.bias
-        y = self.ln2(h)
+        h = h + reduce_sum(parts, h.device, group) + self.out.bias
+        y = enter(self.ln2(h), group)
         parts = [
             F.linear(_act(s.fc1(y.to(s.fc1.weight.device)), self.act), s.fc2.weight)
             for s in shards
         ]
-        return h + reduce_sum(parts, h.device) + self.fc2.bias
+        return h + reduce_sum(parts, h.device, group) + self.fc2.bias
 
 
 class Encoder(nn.Module):
@@ -159,17 +173,19 @@ class Encoder(nn.Module):
         causal: bool,
         attn_impl: str = "auto",
         peers: Sequence["Encoder"] = (),
+        group=None,
     ) -> torch.Tensor:
-        """``peers``: the other model shards' encoders, in shard order."""
+        """``peers``: the other model shards' encoders, in shard order;
+        ``group``: the model row's process group (see ``EncoderLayer``)."""
         for i, layer in enumerate(self.layers):
-            x = layer(x, causal, attn_impl, [p.layers[i] for p in peers])
+            x = layer(x, causal, attn_impl, [p.layers[i] for p in peers], group)
         return x
 
 
-def _run_encoder(encoder: nn.Module, x: torch.Tensor, causal: bool, attn_impl: str, peers) -> torch.Tensor:
+def _run_encoder(encoder: nn.Module, x: torch.Tensor, causal: bool, attn_impl: str, peers, group=None) -> torch.Tensor:
     """``encoder`` (bf16 or, on one device, W8A8) over its model shards."""
-    if peers:
-        return encoder(x, causal, attn_impl, peers)
+    if peers or group is not None:
+        return encoder(x, causal, attn_impl, peers, group)
     return encoder(x, causal=causal, attn_impl=attn_impl)
 
 
@@ -206,13 +222,18 @@ class VisionTower(nn.Module):
         return self.projection(self.post_ln(x[:, 0, :])).float()
 
     def forward(
-        self, pixels: torch.Tensor, attn_impl: str = "auto", peers: Sequence["VisionTower"] = ()
+        self,
+        pixels: torch.Tensor,
+        attn_impl: str = "auto",
+        peers: Sequence["VisionTower"] = (),
+        group=None,
     ) -> torch.Tensor:
         """(B, H, W, 3) preprocessed pixels -> (B, proj) unnormalised fp32.
         ``self.encoder`` is the bf16 ``Encoder`` or, once
         ``quantize_vision_tower`` ran, the W8A8 one. ``peers``: the other
-        model shards' towers (their encoder slices)."""
-        x = _run_encoder(self.encoder, self.stem(pixels), False, attn_impl, [p.encoder for p in peers])
+        model shards' towers (their encoder slices); ``group``: the model
+        row's process group where it spans processes."""
+        x = _run_encoder(self.encoder, self.stem(pixels), False, attn_impl, [p.encoder for p in peers], group)
         return self.head(x)
 
 
@@ -235,6 +256,7 @@ class TextTower(nn.Module):
         eos_id: int,
         attn_impl: str = "auto",
         peers: Sequence["TextTower"] = (),
+        group=None,
     ) -> torch.Tensor:
         """(B, S) eos-padded ids -> (B, proj) unnormalised fp32, pooled at
         the first eos (HF's argmax pooling under eos padding). The rows are
@@ -244,7 +266,7 @@ class TextTower(nn.Module):
         b, s = token_ids.shape
         dt = self.projection.weight.dtype
         x = self.token_embedding(token_ids).to(dt) + self.position_embedding[:s].to(dt)
-        x = self.final_ln(_run_encoder(self.encoder, x, True, attn_impl, [p.encoder for p in peers]))
+        x = self.final_ln(_run_encoder(self.encoder, x, True, attn_impl, [p.encoder for p in peers], group))
         eos_pos = (token_ids == eos_id).int().argmax(dim=-1)
         pooled = x[torch.arange(b, device=x.device), eos_pos]
         return self.projection(pooled).float()
@@ -255,7 +277,10 @@ class CLIPModel(nn.Module):
     compute dtype the bridge or ``init_random`` gives it. ``shards=M``:
     model shard 0's slice; ``peers`` holds the other shards' (their
     replicated leaves removed, each on its own device), filled by
-    ``parallel/sharding.py``'s ``shard_model``."""
+    ``parallel/sharding.py``'s ``shard_model``. Over a model row that
+    spans processes the module holds this process's first model shard,
+    ``peers`` its other local ones, and ``row_group`` is the row's
+    process group (None otherwise)."""
 
     def __init__(self, cfg: CLIPConfig, shards: int = 1):
         super().__init__()
@@ -264,16 +289,17 @@ class CLIPModel(nn.Module):
         self.text = TextTower(cfg.text, cfg.projection_dim, shards)
         self.logit_scale = nn.Parameter(torch.tensor(cfg.logit_scale_init))
         self.peers = nn.ModuleList()
+        self.row_group = None
 
     def forward(
         self, pixels: torch.Tensor, token_ids: torch.Tensor, attn_impl: str = "auto"
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Both towers' unnormalised (B, proj) fp32 features, over the
         model shards (``clip_forward`` calls it functionally)."""
-        peers = list(self.peers)
-        img = self.vision(pixels, attn_impl, [p.vision for p in peers])
+        peers, group = list(self.peers), self.row_group
+        img = self.vision(pixels, attn_impl, [p.vision for p in peers], group)
         eos = self.cfg.text.eos_token_id
-        txt = self.text(token_ids, eos, attn_impl, [p.text for p in peers])
+        txt = self.text(token_ids, eos, attn_impl, [p.text for p in peers], group)
         return img, txt
 
 
@@ -344,7 +370,8 @@ def _normalize(feats: torch.Tensor) -> torch.Tensor:
 def encode_image(model: CLIPModel, pixels: torch.Tensor) -> torch.Tensor:
     """Image tower: (B, H, W, 3) preprocessed NHWC floats -> (B, proj)
     L2-normalised fp32."""
-    return _normalize(model.vision(pixels, peers=[p.vision for p in model.peers]))
+    peers = [p.vision for p in model.peers]
+    return _normalize(model.vision(pixels, peers=peers, group=getattr(model, "row_group", None)))
 
 
 @torch.no_grad()
@@ -357,7 +384,8 @@ def encode_text(
     """Text tower: (B, S) eos-padded ids -> (B, proj) L2-normalised fp32.
     ``eos_token_id`` overrides the config's (alternate vocabularies)."""
     eos = model.cfg.text.eos_token_id if eos_token_id is None else eos_token_id
-    return _normalize(model.text(token_ids, eos, peers=[p.text for p in model.peers]))
+    peers = [p.text for p in model.peers]
+    return _normalize(model.text(token_ids, eos, peers=peers, group=getattr(model, "row_group", None)))
 
 
 def _cast_params(

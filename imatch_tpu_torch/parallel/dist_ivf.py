@@ -15,10 +15,17 @@ Shards are padded to one cluster count and member width, as JAX stacks
 them: padded clusters carry ``nonempty`` False (so do empty ones) and
 never win a probe slot. Member tables hold shard-LOCAL row ids.
 
-A grid that spans processes (parallel/distributed.py) is refused with a
-ValueError: this engine keeps every shard's host state in one process and
-has no exchange of candidates, and it must never answer from the local
-shards alone. The exact ``sharded`` engine serves such a grid.
+Over a grid that spans processes (parallel/distributed.py) each process
+trains k-means (seed ``seed + s``), assigns and packs only the shards it
+owns, repairs only those, then all-gathers each shard's centroids,
+assignments, fills and member width: the host state (``cents``,
+``assign``, ``counts``, ``built_live``) stays whole and identical in
+every process, as the store's SPMD contract needs, and the member tables
+are padded to the width of every shard, as one process pads them. A
+shard another process owns is None in ``shards`` and ``nonempty``. A
+query probes the local shards and merges every process's candidates
+through ``dist_search.merge_parts``, so every process returns what one
+process over the same shard count returns, bit for bit.
 """
 
 from __future__ import annotations
@@ -31,14 +38,16 @@ import torch
 
 from imatch_tpu_torch.index import ivf as _ivf
 from imatch_tpu_torch.index.ivf import IVFIndex, _ivf_probe_topk
-from imatch_tpu_torch.parallel.dist_search import _offset, merge_topk
+from imatch_tpu_torch.parallel import distributed
+from imatch_tpu_torch.parallel.dist_search import _local, _offset, merge_parts
 from imatch_tpu_torch.parallel.mesh import Mesh
 
 
 class ShardedIVF(NamedTuple):
     """One ``IVFIndex`` a shard on its device (centroids (C_max, D),
     members (C_max, M_max) of local ids, corpus (rows, D), valid (rows,)),
-    with each shard's (C_max,) ``nonempty`` mask."""
+    with each shard's (C_max,) ``nonempty`` mask; None for a shard another
+    process owns."""
 
     shards: Tuple[IVFIndex, ...]
     nonempty: Tuple[torch.Tensor, ...]
@@ -95,8 +104,7 @@ def prepare_sharded_ivf_incremental(
 
     Returns ``(state, host_state)``; the host state is the store's and
     comes back as the next call's ``snap``."""
-    if getattr(mesh, "spans_processes", False):
-        raise ValueError(f"ivf-sharded does not run over a grid that spans processes: {mesh!r}; use sharded")
+    spanning = getattr(mesh, "spans_processes", False)
     corpus = np.asarray(corpus)
     valid = np.asarray(valid, bool)
     dp = len(mesh)
@@ -106,10 +114,15 @@ def prepare_sharded_ivf_incremental(
         valid = np.pad(valid, (0, pad))
     rows = corpus.shape[0] // dp
     live = int(valid.sum())
-    # each shard's rows go to its device once, for k-means, assignment and the index
-    dev_rows = [_ivf._as_corpus(corpus[s * rows : (s + 1) * rows], dev) for s, dev in enumerate(mesh)]
+    owned = [s for s in range(dp) if _local(mesh, s)]
+
+    def sl(s):
+        return slice(s * rows, (s + 1) * rows)
+
+    # each owned shard's rows go to its device once, for k-means, assignment and the index
+    dev_rows = {s: _ivf._as_corpus(corpus[sl(s)], mesh[s]) for s in owned}
     repair = _repairable(snap, dp, rows, corpus.shape[1], live)
-    cents, membs, fills = [], [], []
+    membs, fills = {}, {}
     if repair:
         assign = snap["assign"]
         if assign.shape[0] < corpus.shape[0]:
@@ -120,32 +133,38 @@ def prepare_sharded_ivf_incremental(
         built_live = snap["built_live"]
         cents = list(snap["cents"])
         try:
-            for s in range(dp):
-                sl = slice(s * rows, (s + 1) * rows)
-                a_s, ok_s = assign[sl], valid[sl]
+            for s in owned:
+                a_s, ok_s = assign[sl(s)], valid[sl(s)]
                 fresh = np.nonzero((a_s == -1) & ok_s)[0]
                 if fresh.size:
                     a_s[fresh] = _ivf.assign_rows(dev_rows[s][torch.from_numpy(fresh).to(mesh[s])], cents[s])
-                m, counts = _ivf.pack_members(a_s, ok_s, cents[s].shape[0])
-                membs.append(m)
-                fills.append(counts.astype(np.int64))
+                membs[s], counts = _ivf.pack_members(a_s, ok_s, cents[s].shape[0])
+                fills[s] = counts.astype(np.int64)
         except (IndexError, ValueError):
             # semantically corrupt host state (assignments past a shard's
             # cluster count): a full per-shard retrain, never a poisoned path
             repair = False
-            cents, membs, fills = [], [], []
+        if spanning:  # one process's corrupt shard retrains every shard
+            repair = all(distributed.all_gather_object(repair))
     if not repair:
+        membs, fills = {}, {}
         assign = np.full((corpus.shape[0],), -1, np.int32)
         built_live = live
-        for s in range(dp):
-            sl = slice(s * rows, (s + 1) * rows)
-            c = _ivf.train_centroids(dev_rows[s], valid[sl], n_clusters=n_clusters, seed=seed + s)
-            a_s = _ivf.assign_rows(dev_rows[s], c)
-            assign[sl] = a_s
-            m, counts = _ivf.pack_members(a_s, valid[sl], c.shape[0])
-            cents.append(c.cpu().numpy())
-            membs.append(m)
-            fills.append(counts.astype(np.int64))
+        cents = [None] * dp
+        for s in owned:
+            c = _ivf.train_centroids(dev_rows[s], valid[sl(s)], n_clusters=n_clusters, seed=seed + s)
+            assign[sl(s)] = _ivf.assign_rows(dev_rows[s], c)
+            membs[s], counts = _ivf.pack_members(assign[sl(s)], valid[sl(s)], c.shape[0])
+            cents[s] = c.cpu().numpy()
+            fills[s] = counts.astype(np.int64)
+    widths = {s: membs[s].shape[1] for s in owned}
+    if spanning:  # every shard's host state, in every process
+        mine = {s: (cents[s], assign[sl(s)], fills[s], widths[s]) for s in owned}
+        for part in distributed.all_gather_object(mine):
+            for s, (c, a, f, w) in part.items():
+                cents[s], fills[s], widths[s] = c, f, w
+                assign[sl(s)] = a
+    if not repair:
         # the assignment covered every slot; dead and padding rows are
         # stamped unassigned, so rows added there later are repaired
         assign[~valid] = -1
@@ -158,25 +177,23 @@ def prepare_sharded_ivf_incremental(
         "dp": dp,
         "rows": rows,
         # each shard's member-list fill, for the O(batch) append (index/patch.py)
-        "counts": fills,
+        "counts": [fills[s] for s in range(dp)],
         "last_mode": "repair" if repair else "train",
     }
     c_max = max(c.shape[0] for c in cents)
-    m_max = max(m.shape[1] for m in membs)
-    shards, masks = [], []
-    for s, dev in enumerate(mesh):
-        c, m = cents[s], membs[s]
-        shards.append(
-            IVFIndex(
-                torch.from_numpy(np.pad(c, ((0, c_max - c.shape[0]), (0, 0)))).to(dev),
-                torch.from_numpy(
-                    np.pad(m, ((0, c_max - m.shape[0]), (0, m_max - m.shape[1])), constant_values=-1)
-                ).to(device=dev, dtype=torch.int64),
-                dev_rows[s],
-                torch.from_numpy(valid[s * rows : (s + 1) * rows].copy()).to(dev),
-            )
+    m_max = max(widths.values())
+    shards, masks = [None] * dp, [None] * dp
+    for s in owned:
+        dev, c, m = mesh[s], cents[s], membs[s]
+        shards[s] = IVFIndex(
+            torch.from_numpy(np.pad(c, ((0, c_max - c.shape[0]), (0, 0)))).to(dev),
+            torch.from_numpy(
+                np.pad(m, ((0, c_max - m.shape[0]), (0, m_max - m.shape[1])), constant_values=-1)
+            ).to(device=dev, dtype=torch.int64),
+            dev_rows[s],
+            torch.from_numpy(valid[sl(s)].copy()).to(dev),
         )
-        masks.append(torch.from_numpy(np.pad(fills[s] > 0, (0, c_max - c.shape[0]))).to(dev))
+        masks[s] = torch.from_numpy(np.pad(fills[s] > 0, (0, c_max - c.shape[0]))).to(dev)
     return ShardedIVF(tuple(shards), tuple(masks), rows, mesh), host
 
 
@@ -190,10 +207,14 @@ def sharded_ivf_topk(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Approximate global top-k against a prepared sharded IVF: the
     contract of ``tilemax_topk`` ((Q, k) fp32 scores descending, int64
-    global row ids, -1 padded), on the first shard's device."""
+    global row ids, -1 padded), on the first shard's device (over
+    processes: this process's first shard's, every process's candidates
+    merged)."""
     q32 = torch.as_tensor(queries).float()
     parts = []
     for s, (ix, ne) in enumerate(zip(index.shards, index.nonempty)):
+        if ix is None:
+            continue  # another process's shard
         scores, idx = _ivf_probe_topk(
             q32.to(ix.corpus.device),
             ix.centroids,
@@ -206,4 +227,4 @@ def sharded_ivf_topk(
             nonempty=ne,
         )
         parts.append((scores, _offset(idx, s * index.rows)))
-    return merge_topk(parts, k)
+    return merge_parts(parts, index.mesh, k)

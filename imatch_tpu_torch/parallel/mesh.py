@@ -24,14 +24,22 @@ Across processes (the counterpart of a JAX mesh after
 the processes, ``make_mesh`` gathers every process's local devices into
 one grid that every process sees whole. Shard ``s`` belongs to process
 ``s // local_shards`` (``grid.owners``); a process touches only its own
-shards (``grid.is_local``), and the sharded engine exchanges its
-candidates over the process group (parallel/dist_search.py). The model
-axis stays inside a process: such a grid has ``model == 1``.
+shards (``grid.is_local``) and exchanges over the process group
+(parallel/distributed.py). Each grid line whose shards span processes (a
+data column, a model row) has a group of its own (``grid.group``), made
+when the grid is; ``grid.local_block()`` is this process's rectangle of
+data rows and model columns. Either axis may span processes: with
+``owners=[0, 0, 1, 1]`` and ``model=2`` each process holds a whole model
+row and only the data axis crosses processes; with one shard a process
+and ``model=2`` the model row does. A list of a spanning grid's devices,
+or the grid itself, is that grid: it is never stitched a second time
+(until parallel/distributed.py's ``shutdown``, which forgets the grids
+made under the group it leaves).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -62,8 +70,7 @@ class Grid(tuple):
         grid.process = process
         if len(grid.owners) != len(grid):
             raise ValueError(f"{len(grid.owners)} owners for {len(grid)} shards")
-        if len(set(grid.owners)) > 1 and mp != 1:
-            raise ValueError("the model axis cannot span processes: model_parallel must be 1 on such a grid")
+        grid.groups = {}  # (axis, index) -> the line's process group (``_spanning`` fills it)
         return grid
 
     def __getnewargs__(self):
@@ -98,6 +105,56 @@ class Grid(tuple):
         if name == AXIS_MODEL:
             return self.row(0)
         raise ValueError(f"unknown mesh axis {name!r}: {AXIS_DATA!r} or {AXIS_MODEL!r}")
+
+    def line(self, axis: str, index: int) -> Tuple[int, ...]:
+        """The shard indices of one grid line: data column ``index``
+        (axis ``data``) or model row ``index`` (axis ``model``)."""
+        dp = len(self) // self.model
+        if axis == AXIS_DATA:
+            return tuple(d * self.model + index for d in range(dp))
+        if axis == AXIS_MODEL:
+            return tuple(range(index * self.model, (index + 1) * self.model))
+        raise ValueError(f"unknown mesh axis {axis!r}: {AXIS_DATA!r} or {AXIS_MODEL!r}")
+
+    def lines(self, axis: str) -> List[Tuple[int, ...]]:
+        n = self.model if axis == AXIS_DATA else len(self) // self.model
+        return [self.line(axis, i) for i in range(n)]
+
+    def line_spans(self, axis: str, index: int) -> bool:
+        return len({self.owners[s] for s in self.line(axis, index)}) > 1
+
+    def group(self, axis: str, index: int):
+        """The process group of a line whose shards span processes; None
+        for a line inside one process. Raises for a spanning line without
+        a group (a grid built by hand, no process joined)."""
+        if not self.line_spans(axis, index):
+            return None
+        got = self.groups.get((axis, index))
+        if got is None:
+            raise RuntimeError(
+                f"the {axis} line {index} of {self!r} spans processes, but no process group is joined"
+            )
+        return got
+
+    def local_shards(self) -> List[int]:
+        return [s for s in range(len(self)) if self.is_local(s)]
+
+    def local_block(self) -> Tuple[List[int], List[int]]:
+        """This process's data rows and model columns: its shards must be
+        their product, each a contiguous run (every layout ``make_mesh``
+        builds with ``model_parallel`` dividing, or a multiple of, the
+        shards a process brings). Raises ValueError for another layout."""
+        mine = self.local_shards()
+        rows = sorted({s // self.model for s in mine})
+        cols = sorted({s % self.model for s in mine})
+        rect = {d * self.model + m for d in rows for m in cols}
+        contiguous = all(b - a == 1 for seq in (rows, cols) for a, b in zip(seq, seq[1:]))
+        if not mine or rect != set(mine) or not contiguous:
+            raise ValueError(
+                f"process {self.process} holds shards {mine} of {self!r}: not a block of whole "
+                "data rows and model columns, which the grid's paths need"
+            )
+        return rows, cols
 
     def __repr__(self) -> str:
         owners = f", owners={list(self.owners)}" if self.spans_processes else ""
@@ -137,20 +194,27 @@ def as_grid(mesh: Optional[Sequence]) -> Optional[Grid]:
 
 
 def _spanning(local: list, model_parallel: int) -> Grid:
-    """The grid over every process's ``local`` devices, in process order
-    (a collective: every process of the group calls it)."""
-    import torch.distributed as dist
-
-    names = [None] * dist.get_world_size()
-    dist.all_gather_object(names, [str(d) for d in local])
+    """The grid over every process's ``local`` devices, in process order,
+    with a process group for each of its lines that spans processes (a
+    collective: every process of the group calls it)."""
+    names = distributed.all_gather_object([str(d) for d in local])
     if len({len(n) for n in names}) != 1:
         raise ValueError(f"every process must bring as many shards: {[len(n) for n in names]}")
-    return Grid(
+    grid = Grid(
         [d for n in names for d in n],
         model_parallel,
         owners=[p for p, n in enumerate(names) for _ in n],
-        process=dist.get_rank(),
+        process=distributed.process_index(),
     )
+    for axis in (AXIS_DATA, AXIS_MODEL):
+        for i, line in enumerate(grid.lines(axis)):
+            if grid.line_spans(axis, i):
+                key = (axis, i, tuple(grid.owners), model_parallel)
+                grid.groups[(axis, i)] = distributed.new_group(key, {grid.owners[s] for s in line})
+    # known by the identity of its device objects (made for it: a list of
+    # them came from the grid) until the group is left
+    distributed.GRIDS[tuple(map(id, grid))] = grid
+    return grid
 
 
 def make_mesh(
@@ -167,11 +231,16 @@ def make_mesh(
     In a process joined to others (parallel/distributed.py) ``devices``
     are this process's own, and the grid spans every process's (a
     collective: each process calls it with as many devices). A grid that
-    already spans processes is returned as it is."""
+    already spans processes, or the list of its devices (at its model
+    axis), is returned as that grid, with no collective."""
     if model_parallel is None or not isinstance(model_parallel, int):
         model_parallel, devices = 1, model_parallel
-    if isinstance(devices, Grid) and devices.spans_processes:
-        return devices
+    if isinstance(devices, Grid) and (devices.spans_processes or devices.model == model_parallel):
+        return devices  # a grid is itself: never stitched again
+    if devices is not None:
+        known = distributed.GRIDS.get(tuple(map(id, devices)))
+        if known is not None and known.model == model_parallel:
+            return known  # a spanning grid's own devices: that grid
     if devices is None:
         n = torch.cuda.device_count()
         if n == 0:

@@ -22,6 +22,16 @@ of layers such as ``Encoder.layers`` (models/clip/model.py). A layer not
 on its stage's device is copied there for the call (tensors moved, modules
 deep-copied), as JAX's shard_map places the stacked parameters on each
 call; layers already placed are used as they are.
+
+Over an axis that spans processes (a grid from parallel/distributed.py's
+``initialize`` and ``make_mesh``; every process calls with the same x and
+layers) stage s runs only in the process that owns it. An activation
+crosses to the next process by a point-to-point send on the same
+schedule, bubble ticks skipped; the carry keeps x's microbatch shape and
+dtype, as JAX's ``ppermute`` carry does. The last stage's output is
+broadcast, so every process returns it. This form is forward only: under
+autograd it raises RuntimeError (no JAX caller differentiates
+``gpipe_scan``; its backward across processes is queued).
 """
 
 from __future__ import annotations
@@ -32,7 +42,9 @@ from typing import Any, Callable, List, Sequence
 import torch
 from torch import nn
 
+from imatch_tpu_torch.parallel import distributed
 from imatch_tpu_torch.parallel.mesh import AXIS_MODEL, as_grid
+from imatch_tpu_torch.parallel.ring_attention import axis_positions
 
 
 def _tree_map(fn, tree):
@@ -66,6 +78,14 @@ def _place(layer, device: torch.device):
     return _tree_map(lambda t: t.to(device), layer)
 
 
+def _requires_grad(layer) -> bool:
+    if isinstance(layer, nn.Module):
+        return any(p.requires_grad for p in layer.parameters())
+    found = []
+    _tree_map(lambda t: found.append(t.requires_grad), layer)
+    return any(found)
+
+
 def gpipe_scan(
     body: Callable,
     x: torch.Tensor,
@@ -80,28 +100,49 @@ def gpipe_scan(
     body: (h, layer) -> (h, _). x: (B, ...) with B divisible by
     ``microbatches``; the layer count must divide by the stage count (the
     size of ``mesh``'s ``axis``)."""
-    devices = as_grid(mesh).axis(axis)
+    grid = as_grid(mesh)
+    devices, owners, mine = axis_positions(grid, axis)
     p = len(devices)
     layers = _layers(stacked)
     if len(layers) % p:
         raise ValueError(f"{len(layers)} layers not divisible by {p} stages")
     if x.shape[0] % microbatches:
         raise ValueError(f"batch {x.shape[0]} not divisible by microbatches={microbatches}")
+    across = grid.spans_processes
+    if across and torch.is_grad_enabled() and (x.requires_grad or any(_requires_grad(lp) for lp in layers)):
+        raise RuntimeError(
+            "gpipe_scan across processes is forward only: run it under torch.no_grad() "
+            "(its backward across processes is not ported)"
+        )
     per = len(layers) // p
-    stages = [[_place(lp, dev) for lp in layers[s * per : (s + 1) * per]] for s, dev in enumerate(devices)]
-    x_mb = x.to(devices[0]).chunk(microbatches)
+    stages = {s: [_place(lp, devices[s]) for lp in layers[s * per : (s + 1) * per]] for s in mine}
+    x_mb = x.chunk(microbatches)
     inbox = {}  # (stage, microbatch) -> its input, on the stage's device
-    outs = [None] * microbatches
+    outs, sends = [None] * microbatches, []
     for t in range(microbatches + p - 1):
-        for s in range(p):
+        for s in mine:  # this process's stages
             mb = t - s
             if not 0 <= mb < microbatches:
                 continue  # a bubble tick: this stage has nothing to run
-            h = x_mb[mb] if s == 0 else inbox.pop((s, mb))
+            if s == 0:
+                h = x_mb[mb].to(devices[0])
+            elif (s, mb) in inbox:
+                h = inbox.pop((s, mb))
+            else:  # sent by the previous stage's process on the last tick
+                h = distributed.recv(x_mb[mb].shape, x.dtype, owners[s - 1], devices[s])
             for lp in stages[s]:
                 h = body(h, lp)[0]
-            if s + 1 < p:
+            if s + 1 == p:
+                outs[mb] = h.to(devices[mine[0]], non_blocking=True)
+            elif owners[s + 1] == grid.process:
                 inbox[(s + 1, mb)] = h.to(devices[s + 1], non_blocking=True)
             else:
-                outs[mb] = h.to(devices[0], non_blocking=True)
-    return torch.cat(outs, dim=0)
+                if h.shape != x_mb[mb].shape or h.dtype != x.dtype:
+                    raise ValueError(f"the carry changed from {tuple(x_mb[mb].shape)} to {tuple(h.shape)}")
+                sends.append(distributed.send_async(h, owners[s + 1]))
+    for _, req in sends:
+        req.wait()
+    if not across:
+        return torch.cat(outs, dim=0)
+    last = p - 1 in mine
+    return distributed.broadcast(torch.cat(outs, dim=0) if last else None, owners[-1], devices[mine[0]])

@@ -35,6 +35,18 @@ shards' slices. ``gather_named`` and ``shard_named`` convert tensors
 keyed by a sharded model's parameter names (parameters, optimizer
 moments) to the full model's names and back: the checkpoints' path
 (parallel/checkpoint.py).
+
+Given a grid whose model row spans processes (parallel/mesh.py), each
+process holds only its own model shards' slices (its first local shard
+in the root module, the rest in ``peers``) and a replica of every
+replicated leaf (the LayerNorms, embeddings, ``logit_scale``, the
+``out``/``fc2`` biases, which each process adds once after the row's
+all-reduce); the root's ``row_group`` is the row's process group. Such a
+model's ``gather_named`` and ``shard_named`` gather and split across the
+row's processes (a collective over the row: a checkpoint's save). The
+Moondream prefill under TP stays in one process: no JAX path serves it
+over a process-spanning model axis, and ``shard_model`` refuses such a
+row with a ValueError.
 """
 
 from __future__ import annotations
@@ -45,7 +57,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from imatch_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_MODEL
+from imatch_tpu_torch.parallel import distributed
+from imatch_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_MODEL, Grid
 
 Split = Tuple[int, Tuple[int, ...]]  # (dim, widths of the blocks along it)
 
@@ -175,15 +188,27 @@ _PEER = re.compile(r"^peers\.(\d+)\.")
 
 
 def shard_index(name: str) -> int:
-    """The model shard that holds the parameter ``name`` of a sharded model
-    (``peers.<j>.`` is shard j + 1)."""
+    """The local model shard that holds the parameter ``name`` of a
+    sharded model (``peers.<j>.`` is shard j + 1; over a row that spans
+    processes, add ``model_first``)."""
     m = _PEER.match(name)
     return 0 if m is None else int(m.group(1)) + 1
 
 
-def model_shards(model: nn.Module) -> int:
+def local_shards(model: nn.Module) -> int:
+    """The model shards this process holds of ``model``."""
     peers = getattr(model, "peers", None)
     return 1 + (len(peers) if peers is not None else 0)
+
+
+def model_shards(model: nn.Module) -> int:
+    """The model axis ``model`` is split over (all processes' shards)."""
+    return getattr(model, "model_total", None) or local_shards(model)
+
+
+def model_first(model: nn.Module) -> int:
+    """The model index of this process's first shard of ``model``."""
+    return getattr(model, "model_first", 0)
 
 
 # Where each module with a ``jax_sources`` sits in JAX's tree, by its
@@ -277,29 +302,61 @@ def _template(model: nn.Module, shards: int) -> nn.Module:
     return t
 
 
+def _local_row(grid: Grid):
+    """(this process's devices of its model row, the model index of the
+    first, the row's process group) on a grid that spans processes."""
+    rows, cols = grid.local_block()
+    if len(rows) != 1:
+        raise ValueError(
+            f"process {grid.process} holds data rows {rows} of {grid!r}: a model over a grid "
+            "that spans processes takes one data row a process"
+        )
+    return [grid.device(rows[0], m) for m in cols], cols[0], grid.group(AXIS_MODEL, rows[0])
+
+
 def shard_model(model: nn.Module, devices: Sequence) -> nn.Module:
     """``model`` (a CLIPModel or MoondreamModel on one device, bf16 or
     fp32, not sharded) placed over ``devices``, one grid row's model
     shards in order: shard 0, on ``devices[0]``, holds its slices and every
     replicated leaf; its ``peers`` hold shard 1.. M-1's slices, each on its
     device. One device returns ``model`` on it. The int8 modes (int8
-    weights, the W8A8 tower) are refused: they run on one device."""
+    weights, the W8A8 tower) are refused: they run on one device.
+
+    ``devices`` may be a ``Grid``: in one process its first row; over a
+    grid that spans processes, this process's own model shards of its data
+    row (every process calls it on the same ``model``), the replicated
+    leaves in each, and the root's ``grid``, ``row_group``,
+    ``model_first`` and ``model_total`` set. A Moondream model on a model
+    row that spans processes raises ValueError."""
+    grid = devices if isinstance(devices, Grid) else None
+    first, total, group = 0, None, None
+    if grid is not None and grid.spans_processes:
+        if hasattr(model, "projector") and any(grid.line_spans(AXIS_MODEL, d) for d in range(grid.shape[AXIS_DATA])):
+            raise ValueError(
+                "the Moondream prefill under TP runs in one process: its model axis cannot span "
+                f"processes ({grid!r})"
+            )
+        devices, first, group = _local_row(grid)
+        total = grid.model
+    elif grid is not None:
+        devices = grid.row(0)
     devices = [torch.device(d) for d in devices]
     shards = len(devices)
     if model_shards(model) != 1:
         raise ValueError("the model is sharded already")
     if any(True for _ in model.buffers()):
         raise ValueError("the int8 modes run on one device: shard a bf16 or fp32 model")
-    if shards == 1:
+    if total is None and shards == 1:
         return model.to(devices[0])
+    total = total or shards
     full = dict(model.named_parameters())
     rules = split_rules(model)
-    pieces = {n: _split(full[n], *rules[n], shards) for n in rules}
+    pieces = {n: _split(full[n], *rules[n], total) for n in rules}
     out = []
     for m, dev in enumerate(devices):
-        mod = _template(model, shards)
+        mod = _template(model, total)
         state = {
-            n: (pieces[n][m] if n in rules else t).to(dev)
+            n: (pieces[n][first + m] if n in rules else t).to(dev)
             for n, t in full.items()
             if m == 0 or n in rules
         }
@@ -312,6 +369,8 @@ def shard_model(model: nn.Module, devices: Sequence) -> nn.Module:
         out.append(mod)
     root = out[0]
     root.peers = nn.ModuleList(out[1:])
+    if grid is not None and grid.spans_processes:
+        root.grid, root.row_group, root.model_first, root.model_total = grid, group, first, total
     grad = any(p.requires_grad for p in model.parameters())
     return root.train(model.training).requires_grad_(grad)
 
@@ -321,14 +380,20 @@ def gather_named(
 ) -> Dict[str, torch.Tensor]:
     """Tensors keyed by a sharded ``model``'s parameter names (its
     parameters, or optimizer moments) as the full model's, on ``device``:
-    each split leaf's slices joined in shard order."""
+    each split leaf's slices joined in shard order. Over a model row that
+    spans processes the slices of every process of the row are gathered
+    (a collective over the row: each of its processes calls it)."""
     rules = split_rules(model)
+    group = getattr(model, "row_group", None)
     out = {}
     for n, t in named.items():
         if shard_index(n):
             continue
         if n in rules:
-            slices = [t] + [named[f"peers.{j}.{n}"] for j in range(model_shards(model) - 1)]
+            slices = [t] + [named[f"peers.{j}.{n}"] for j in range(local_shards(model) - 1)]
+            if group is not None:  # gathered on ``device`` (gloo crosses the host anyway)
+                local = torch.stack([s.detach().to(device) for s in slices])
+                slices = [p for g in distributed.all_gather(local, group) for p in g.unbind(0)]
             out[n] = _join([s.to(device) for s in slices], *rules[n])
         else:
             out[n] = t.to(device)
@@ -338,7 +403,7 @@ def gather_named(
 def shard_named(full: Dict[str, torch.Tensor], model: nn.Module) -> Dict[str, torch.Tensor]:
     """The inverse of ``gather_named``: the full model's tensors split as
     the sharded ``model`` holds them, each on its parameter's device."""
-    shards = model_shards(model)
+    shards, first, held = model_shards(model), model_first(model), local_shards(model)
     rules = split_rules(model)
     params = dict(model.named_parameters())
     out = {}
@@ -347,9 +412,10 @@ def shard_named(full: Dict[str, torch.Tensor], model: nn.Module) -> Dict[str, to
             out[n] = t.to(params[n].device)
             continue
         dim, widths = rules[n]
-        for m, piece in enumerate(_split(t, dim, [w * shards for w in widths], shards)):
+        pieces = _split(t, dim, [w * shards for w in widths], shards)
+        for m in range(held):  # this process's shards only
             name = n if m == 0 else f"peers.{m - 1}.{n}"
-            out[name] = piece.to(params[name].device)
+            out[name] = pieces[first + m].to(params[name].device)
     return out
 
 

@@ -30,8 +30,19 @@ Over a grid (``mesh=``, parallel/mesh.py), as JAX's step over its mesh:
   order; the global-norm clip takes the norm of the logical arrays over
   all shards, then AdamW runs on each model shard's device.
 
-The grid is one process over a device list (no ``torch.distributed``);
-every reduce sums in a fixed shard order, so a run repeats bit for bit.
+Over a grid that spans processes (parallel/distributed.py ``initialize``
+then ``make_mesh``) each process holds its own model shards of its one
+data row (parallel/sharding.py) and runs its data shard's rows on them;
+the towers' reduces are all-reduces over the model row's processes
+(ops/collectives.py). The normalized features of every data shard are
+gathered over the data column for the global-batch InfoNCE, whose
+gradient each process reads back on its own rows; each leaf's gradient is
+summed over the data axis in data-shard order (one ordered all-reduce a
+model column); the global norm takes every model shard's leaves across
+the row's processes, the replicated ones once; AdamW runs on the local
+shards. Every reduce, in one process or across processes, sums in a fixed
+shard order, so a run repeats bit for bit and a grid over processes steps
+as the same grid shape does in one process.
 """
 
 from __future__ import annotations
@@ -48,8 +59,16 @@ from imatch_tpu_torch.models.clip.bridge import params_from_numpy
 from imatch_tpu_torch.models.clip.configs import CLIPConfig
 from imatch_tpu_torch.models.clip.model import CLIPModel, clip_features, clip_forward, init_random
 from imatch_tpu_torch.ops.collectives import gather
-from imatch_tpu_torch.parallel.mesh import Grid, as_grid
-from imatch_tpu_torch.parallel.sharding import model_shards, shard_index, shard_model
+from imatch_tpu_torch.parallel import distributed
+from imatch_tpu_torch.parallel.mesh import AXIS_DATA, Grid, as_grid
+from imatch_tpu_torch.parallel.sharding import (
+    local_shards,
+    model_first,
+    model_shards,
+    shard_index,
+    shard_model,
+    split_rules,
+)
 
 # CLIP clamps exp(logit_scale) at 100 (openai/CLIP model.py public impl).
 MAX_LOGIT_SCALE = 4.6052
@@ -117,11 +136,20 @@ class AdamW:
         for n in state.mu:
             groups.setdefault(named[n].device, []).append(n)
         root = state.count.device
+        row = getattr(params, "row_group", None)
+        # over a row that spans processes, a process past the row's first
+        # counts only its slices: the replicated leaves once in the norm
+        counted = _norm_leaves(params, state.mu) if row is not None else None
         norms = [
-            x.to(root) for names in groups.values() for x in torch._foreach_norm([grads[n] for n in names])
+            x.to(root)
+            for names in groups.values()
+            for x in torch._foreach_norm([grads[n] for n in names if counted is None or n in counted])
         ]
+        norms = torch.stack(norms) if norms else torch.zeros((0,), device=root)
+        if row is not None:  # every shard's norms, in the one-process order
+            norms = torch.cat([x.to(root) for x in distributed.all_gather_object(norms.cpu(), row)])
         # clip_by_global_norm: select(norm < clip, g, g / norm * clip)
-        g_norm = torch.linalg.vector_norm(torch.stack(norms))
+        g_norm = torch.linalg.vector_norm(norms)
         below = g_norm < self.grad_clip
         one = torch.ones_like(g_norm)
         div = torch.where(below, one, g_norm)
@@ -168,6 +196,15 @@ class AdamW:
         torch._foreach_add_(ps, upd)
 
 
+def _norm_leaves(params: CLIPModel, names) -> set:
+    """The leaves this process adds to the global norm: all of them on the
+    row's first model shard, its split slices elsewhere."""
+    if model_first(params) == 0:
+        return set(names)
+    rules = split_rules(params)
+    return {n for n in names if shard_index(n) or n in rules}
+
+
 def make_optimizer(lr: float = 1e-5, weight_decay: float = 0.2, grad_clip: float = 1.0) -> AdamW:
     return AdamW(lr=lr, weight_decay=weight_decay, grad_clip=grad_clip)
 
@@ -186,7 +223,10 @@ def init_train_state(
     ``clip_param_specs``' split (the same init on every grid)."""
     tx = tx or make_optimizer()
     grid = as_grid(mesh)
-    device = grid.device(0, 0) if grid is not None else resolve_device(device)
+    if grid is not None and grid.spans_processes:
+        device = grid[grid.local_shards()[0]]
+    else:
+        device = grid.device(0, 0) if grid is not None else resolve_device(device)
     if isinstance(key, (int, np.integer)):
         gen = torch.Generator(device=device).manual_seed(int(key))
         model = init_random(cfg, device=device, dtype=torch.float32, generator=gen)
@@ -194,7 +234,7 @@ def init_train_state(
         model = params_from_numpy(key, cfg, device=device, dtype=torch.float32)
     model.train().requires_grad_(True)
     if grid is not None:
-        model = shard_model(model, grid.row(0))
+        model = shard_model(model, grid)
     return TrainState(0, model, tx.init(model)), tx
 
 
@@ -210,7 +250,10 @@ def loss_and_grads(
     """``jax.value_and_grad`` of the contrastive loss: the loss and the
     gradient of every parameter, keyed by name (fp32, as the masters).
     With a grid of more than one data shard, the batch splits over
-    ``data`` (``_data_parallel``)."""
+    ``data`` (``_data_parallel``); over a grid that spans processes each
+    process takes its own rows (``_across_processes``)."""
+    if mesh is not None and mesh.spans_processes:
+        return _across_processes(params, mesh, pixels, tokens, dtype, attn_impl)
     if mesh is not None and mesh.shape["data"] > 1:
         return _data_parallel(params, mesh, pixels, tokens, dtype, attn_impl)
     _, _, logits = clip_forward(params, pixels, tokens, dtype=dtype, attn_impl=attn_impl)
@@ -270,6 +313,42 @@ def _data_parallel(model, grid, pixels, tokens, dtype, attn_impl):
             if g is not None:
                 acc = acc + g.to(p.device)
         grads[n] = acc
+    return loss.detach(), grads
+
+
+def _across_processes(model, grid, pixels, tokens, dtype, attn_impl):
+    """The step's loss and gradients over a grid that spans processes: this
+    process's data row d runs rows [d B/D, (d + 1) B/D) on its model
+    shards; the normalized features are gathered over the data column
+    (their gradient read back on this process's rows); each local leaf's
+    gradient is summed over its data column in data-shard order."""
+    placed = getattr(model, "grid", None)
+    if placed is None or tuple(placed) != tuple(grid) or placed.model != grid.model:
+        raise ValueError(f"the state was not placed on {grid!r}")
+    rows, cols = grid.local_block()
+    n_data, b = grid.shape[AXIS_DATA], pixels.shape[0]
+    if b % n_data:
+        raise ValueError(f"batch {b} does not split over {n_data} data shards")
+    per, d = b // n_data, rows[0]
+    dev = model.logit_scale.device
+    sl = slice(d * per, (d + 1) * per)
+    img, txt = clip_features(model, pixels[sl].to(dev), tokens[sl].to(dev), dtype=dtype, attn_impl=attn_impl)
+    column = grid.group(AXIS_DATA, cols[0])
+    img, txt = gather([img], dev, group=column), gather([txt], dev, group=column)
+    # every data row computes the same loss: the logit scale's gradient
+    # through it is data row 0's alone, as the one loss of one process
+    scale = model.logit_scale if d == 0 else model.logit_scale.detach()
+    loss = clip_loss(scale.exp() * (img @ txt.T))
+    names, ps = zip(*model.named_parameters())
+    got = torch.autograd.grad(loss, ps, allow_unused=True)
+    grads = {n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, ps, got)}
+    if n_data > 1:  # one flat ordered all-reduce a model column
+        for j in range(local_shards(model)):
+            mine = [n for n in names if shard_index(n) == j]
+            flat = torch.cat([grads[n].reshape(-1) for n in mine])
+            flat = distributed.all_reduce_ordered([flat], grid.group(AXIS_DATA, cols[j]))
+            for n, piece in zip(mine, flat.split([grads[n].numel() for n in mine])):
+                grads[n] = piece.view_as(grads[n])
     return loss.detach(), grads
 
 

@@ -32,6 +32,13 @@ or the fused bulk-ingest step's frames, splits into equal row blocks, one
 a shard, gathered back in shard order on the first device; chunks pad to
 ``pow2_bucket(b, max(chunk, d), multiple=d)``. The W8A8 tower replicates
 the same way.
+
+Over a grid that spans processes (``mesh=`` a grid from parallel/
+distributed.py's ``initialize`` and ``make_mesh``; every process embeds
+the same rows) the grid's shard count is kept: each process runs only its
+own shards' blocks (K2 at a data shard's rows) on its own replicas, and
+the embeddings are all-gathered in shard order, so every process returns
+what one process over the same shard count returns.
 """
 
 from __future__ import annotations
@@ -63,7 +70,7 @@ from imatch_tpu_torch.ops.phash import (
 from imatch_tpu_torch.ops.preprocess import preprocess_core, preprocess_images
 from imatch_tpu_torch.ops.resize import resample_matrix, resize_crop_matrices
 from imatch_tpu_torch.ops.tokenizer import default_tokenizer
-from imatch_tpu_torch.parallel.mesh import make_mesh
+from imatch_tpu_torch.parallel.mesh import as_grid
 from imatch_tpu_torch.runtime.scheduler import GATE
 from imatch_tpu_torch.utils.batching import pow2_bucket
 from imatch_tpu_torch.utils.metrics import METRICS
@@ -100,7 +107,9 @@ class ClipEmbedder:
         self.mesh = self._data_shards(device, data_parallel, mesh)
         # JAX's dp: 0 for one device, else the shard count
         self.dp = len(self.mesh) if (mesh is not None or data_parallel > 1) else 0
-        self.device = self.mesh[0]
+        self._spanning = getattr(self.mesh, "spans_processes", False)
+        self._local = [j for j in range(len(self.mesh)) if not self._spanning or self.mesh.is_local(j)]
+        self.device = self.mesh[self._local[0]]
         self.compute_dtype = compute_dtype or default_compute_dtype(self.device)
         if quant is None:
             quant = os.environ.get("IMATCH_EMBED_QUANT", "")
@@ -141,7 +150,7 @@ class ClipEmbedder:
             logger.info("image tower quantized: W8A8 int8 (K3/K4 quantize)")
         # the weights replicated over the data shards: one copy a device
         self._replicas = {self.device: self.model}
-        for dev in self.mesh:
+        for dev in (self.mesh[j] for j in self._local):
             if dev not in self._replicas:
                 self._replicas[dev] = copy.deepcopy(self.model).to(dev)
         self.tokenizer = default_tokenizer()
@@ -172,12 +181,14 @@ class ClipEmbedder:
         )
 
     @staticmethod
-    def _data_shards(device, data_parallel, mesh) -> list:
-        """The data shards' devices: ``mesh``, else the first
-        ``data_parallel`` visible cards (fewer: a warning, and those; on
-        the CPU there is one), else ``device`` alone."""
+    def _data_shards(device, data_parallel, mesh) -> Sequence:
+        """The data shards' devices: ``mesh`` (a grid as it is given, a
+        list as its grid), else the first ``data_parallel`` visible cards
+        (fewer: a warning, and those; on the CPU there is one), else
+        ``device`` alone."""
         if mesh is not None:
-            return list(make_mesh(list(mesh)))
+            grid = as_grid(mesh)
+            return grid if grid.spans_processes else list(grid)
         dev = resolve_device(device)
         if data_parallel <= 1:
             return [dev]
@@ -213,17 +224,19 @@ class ClipEmbedder:
         """``fn(model, block)`` on each data shard's equal block of
         ``rows`` (on the shard's device, with its replica), the results
         gathered on the first device in shard order (a tuple of results
-        gathered one by one)."""
+        gathered one by one). Over processes: this process's shards only,
+        every process's results all-gathered."""
         if len(self.mesh) == 1:
             return fn(self.model, rows)
         per = rows.shape[0] // len(self.mesh)
         outs = [
-            fn(self._replicas[dev], rows[j * per : (j + 1) * per].to(dev))
-            for j, dev in enumerate(self.mesh)
+            fn(self._replicas[self.mesh[j]], rows[j * per : (j + 1) * per].to(self.mesh[j]))
+            for j in self._local
         ]
+        group = torch.distributed.group.WORLD if self._spanning else None
         if isinstance(outs[0], tuple):
-            return tuple(gather(parts, self.device) for parts in zip(*outs))
-        return gather(outs, self.device)
+            return tuple(gather(parts, self.device, group=group) for parts in zip(*outs))
+        return gather(outs, self.device, group=group)
 
     def _run_tower(self, fn, rows: torch.Tensor, metric: str) -> torch.Tensor:
         outs = []
