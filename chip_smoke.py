@@ -203,7 +203,8 @@ prints (phases 3-5b, 10, 11) is taken on a quiet card:
    8g, on logical shards of cuda:0 (the machine holds one card: no run
    over several real cards takes place). (a) K2 at a tensor-parallel
    shard's head count, bf16, against its plain version: (2, 8, 729, 72),
-   (4, 8, 257, 64), causal (4, 6, 248, 64). (b) vit-b32 (phase 8i (d) steps
+   (4, 8, 257, 64), causal (4, 6, 248, 64), and phase 8i (f)'s (4, 8,
+   729, 72). (b) vit-b32 (phase 8i (d) steps
    LongCLIP-L/14-248 on the (2, 2) grid, in one process and across four)
    at full width and depth, one fp32 step (TF32 off) at B = 8 on a (2, 2) grid
    against one device from the same seed: the loss within
@@ -232,7 +233,8 @@ prints (phases 3-5b, 10, 11) is taken on a quiet card:
    engine's ids, a sidecar each process saves reloaded and repaired in
    one process, an add through the append patch and a delete; query ms
    at Q = 1 and 16 and the gather's share; (b) LongCLIP-L/14-248's towers
-   at mp = 2, one model shard a process, B = 16: K2 launched at (16, 8,
+   at half depth (12 image, 6 text layers, full width: the run's time
+   limit) at mp = 2, one model shard a process, B = 16: K2 launched at (16, 8,
    257, 64) in each and held against ``flash_mha_plain`` on the captured
    input, cosine >= 0.9999 to the one-process mp = 2 forward and equal
    top-10 ids; (c) the embedder's data axis, one shard a process, 16
@@ -241,8 +243,18 @@ prints (phases 3-5b, 10, 11) is taken on a quiet card:
    4 positions (2 a process), output and gradient equal to the
    one-process ring's, and GPipe over the 24 image layers, one stage a
    process, B = 32, M = 4, equal to the one-process pipeline, K2 launched
-   12 x 4 times a process, its refusal under autograd; each timed beside
-   the one-process run. Launch B, (d), started with launch A: 4 processes
+   12 x 4 times a process, then its backward (the output's mean square,
+   ``mha_xla``): x's gradient the same in both processes and, with each
+   process's stage's layers' gradients, within the bf16 bar of the
+   one-process pipeline's; (f) moondream2 (seeded bf16 weights) over a
+   model row of 2 shards, one a process: 4 images encoded, an 8-id
+   prompt prefilled and 8 tokens decoded greedily, K2 launched 27 times
+   a process at (4, 8, 729, 72) and held against ``flash_mha_plain``,
+   the prefill logits' per-row cosine >= ``PARALLEL_MD_MIN_COSINE``
+   against the one-process mp = 2 grid's and the tokens equal; each path
+   timed beside the one-process run (the prefill and a decode step for
+   (f), forward and backward for GPipe). Launch B, (d), started with
+   launch A: 4 processes
    on the (2, 2) grid, two DP + TP steps of LongCLIP-L at half its depth
    (12 image and 6 text layers, full width: the run's time limit) at B =
    32 (bf16, fp32 masters), every worker's losses within rtol 1e-6 of the
@@ -4847,7 +4859,8 @@ PARALLEL_EMBED_ROWS = 4096  # random unit rows of the store beside the 24 images
 PARALLEL_EMBED_SHARD_ROWS = 16  # the 24 frames pad to 32 (pow2_bucket): 16 a data shard
 # K2 at a tensor-parallel shard's head count: the Moondream vision tower
 # and the LongCLIP towers at mp = 2
-K2_TP_CASES = [((2, 8, 729, 72), False), ((4, 8, 257, 64), False), ((4, 6, 248, 64), True)]
+# the last: a moondream2 vision-tower shard of phase 8i's Moondream path across processes (B = 4)
+K2_TP_CASES = [((2, 8, 729, 72), False), ((4, 8, 257, 64), False), ((4, 6, 248, 64), True), ((4, 8, 729, 72), False)]
 
 
 def parallel_train_check(device, config=SLICE_CONFIG) -> tuple:
@@ -5207,17 +5220,19 @@ SCALE_RING_CASES = [((32, 12, 248, 64), (4, 8)), ((1, 16, 16384, 64), (8,))]  # 
 SCALE_PIPE = [(2, 4), (4, 8)]  # (stages, microbatches)
 SCALE_PIPE_BATCH = 32
 SCALE_PIPE_MIN_COSINE = 0.9999  # per (image, token) row, pipelined against the unpipelined encoder
-# launch A: the sharded store, ivf-sharded, the TP forward, the embedder, the ring and GPipe
+# launch A: the sharded store, ivf-sharded, the TP forward, the embedder, the ring, GPipe
+# (forward and backward) and the Moondream encode, prefill and decode over a spanning model row
 SCALE_MP = {
     "procs": 2, "local-devices": 2, "rows": 1 << 17, "dim": 768, "queries": 16, "k": 10,
-    "paths": "sharded,ivf,tp,embed,ring,gpipe", "centres": 1448, "config": "longclip-l14-248",
-    "batch": 16, "mp": 2, "ring": "32,12,248,64", "pipe-batch": 32, "microbatches": 4,
+    "paths": "sharded,ivf,tp,embed,ring,gpipe,md", "centres": 1448, "config": "longclip-l14-248",
+    "batch": 16, "mp": 2, "layers": "12,6", "ring": "32,12,248,64", "pipe-batch": 32, "microbatches": 4,
+    "md-config": MD_CONFIG, "md-mp": 2,
 }  # fmt: skip
 # launch B: two DP + TP steps on the (2, 2) grid and the checkpoint, at
 # half LongCLIP-L's depth (12 image, 6 text layers; full width): the run's
 # time limit
 SCALE_TRAIN = {
-    "procs": 4, "paths": "train", "config": "longclip-l14-248", "train-layers": "12,6", "train-batch": 32,
+    "procs": 4, "paths": "train", "config": "longclip-l14-248", "layers": "12,6", "train-batch": 32,
     "steps": 2, "mp": 2, "reference": "caller",
 }  # fmt: skip
 SCALE_TRAIN_SEED = 0  # the dryrun's --seed: its init and clip_batch(..., seed + 100 + step)
@@ -5410,11 +5425,21 @@ def _held_at(row, shape) -> bool:
 def _paths_ok(w) -> bool:
     """Launch A's paths as the contract reads them, beside the worker's
     own checks: K1 in the sharded path, K2 at the TP shard's, the
-    embedder's data shard's and GPipe's microbatch shapes, GPipe's launch
-    count, the ring's equality."""
+    embedder's data shard's, GPipe's microbatch and the Moondream tower
+    shard's shapes, GPipe's and the Moondream encode's launch counts, the
+    ring's equality, GPipe's backward (the bf16 bar against one process,
+    x's gradient the same in both), the Moondream prefill's cosine
+    (``PARALLEL_MD_MIN_COSINE``) and greedy tokens against the
+    one-process mp = 2 grid."""
+    from imatch_tpu_torch.models.moondream.configs import get_md_config
+    from imatch_tpu_torch.scripts.dryrun_multiprocess import MD_BATCH
+
     vc_heads, seq = 16, 257  # LongCLIP-L/14-248's image tower
     per = SCALE_MP["batch"] // SCALE_MP["procs"]
     mb = SCALE_MP["pipe-batch"] // SCALE_MP["microbatches"]
+    mv = get_md_config(SCALE_MP["md-config"]).vision
+    md = w["md"][f"mp{SCALE_MP['md-mp']}"]
+    md_shape = (MD_BATCH, mv.num_heads // SCALE_MP["md-mp"], mv.num_patches, mv.head_dim)
     return (
         w["k1_launches"] + w["k1_mma_launches"] > 0
         and w["ivf"]["sidecar_modes"] == ["repair", "repair"]
@@ -5422,9 +5447,12 @@ def _paths_ok(w) -> bool:
         and w["tp"]["min_cosine"] >= 0.9999 and w["tp"]["top10_equal"]
         and _held_at(w["embed"], (per, vc_heads, seq, 64)) and w["embed"]["top10_equal_one_device"]
         and w["ring"]["equal"]
-        and w["gpipe"]["equal"] and w["gpipe"]["grad_refused"]
+        and w["gpipe"]["equal"] and w["gpipe"]["backward"]["ok"]
+        and w["gpipe"]["backward"]["x_grad_same_in_every_process"]
         and _held_at(w["gpipe"], (mb, vc_heads, seq, 64))
         and w["gpipe"]["k2_launches"] == 24 // SCALE_MP["procs"] * SCALE_MP["microbatches"]
+        and _held_at(md, md_shape) and md["k2_launches"] == mv.num_layers
+        and md["min_cosine"] >= PARALLEL_MD_MIN_COSINE and md["tokens_equal"]
     )  # fmt: skip
 
 
@@ -5468,7 +5496,7 @@ def scale_train_reference(device) -> tuple:
     from imatch_tpu_torch.parallel.train import make_optimizer
     from imatch_tpu_torch.scripts.dryrun_multiprocess import clip_batch, train_config
 
-    cfg, mp = train_config(SCALE_TRAIN["config"], SCALE_TRAIN["train-layers"]), SCALE_TRAIN["mp"]
+    cfg, mp = train_config(SCALE_TRAIN["config"], SCALE_TRAIN["layers"]), SCALE_TRAIN["mp"]
     tx = make_optimizer()
     grid = Grid([device] * SCALE_TRAIN["procs"], mp)
     state, _ = init_train_state(SCALE_TRAIN_SEED, cfg, tx, mesh=grid)
@@ -5565,6 +5593,7 @@ def phase_scale(ctx, device="cuda") -> dict:
         "K1": k1 + sum(w["k1_launches"] for w in workers),
         "K1_mma": k1_mma + sum(w["k1_mma_launches"] for w in workers),
         "K2": k2_pipe + k2 + k2_mp,
+        "K2_tp": sum(w["md"]["k2_launches"] for w in workers),  # a Moondream tower shard's
     }
 
 
@@ -5864,7 +5893,8 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
     entries', phase 8e's sharded engine calls their K1 launches (P a call)
     and its HTTP requests their K2 launches. Phase 8h's sharded Moondream
     encode gives the tensor-parallel K2 entry (a shard's (2, 8, 729, 72))
-    its launches, and its data-parallel embedder adds its K2, K3 and K4
+    its launches, with phase 8i's Moondream encode across processes (at
+    (4, 8, 729, 72)), and its data-parallel embedder adds its K2, K3 and K4
     launches to those entries. The fp32 kernels (the fidelity paths) have
     entries of their own: K1 at Q >= 2 in fp32 at the batch route's 256
     queries, with the fp32 tier's batch and phase 8e's fp32 sharded calls;
@@ -5958,7 +5988,8 @@ def kernels_line(k2_rows, k1_rows, k1i8_rows, k34_rows, k5_rows, k6_rows, launch
             "imatch_tpu/ops/pallas/flash_attention.py:26",
             "K2_tp",
             f"{tuple(K2_TP_CASES[0][0])} bf16, non-causal: a model shard of the Moondream vision "
-            "tower at mp = 2; launches: phase 8h's sharded encode (one a shard a layer)",
+            "tower at mp = 2; launches: phase 8h's sharded encode (one a shard a layer) and phase 8i's "
+            f"encode over a model row of 2 processes (at {tuple(K2_TP_CASES[-1][0])}, one a process a layer)",
         ),
         (
             "K3 quant_rows",

@@ -17,6 +17,12 @@ steps run weight-only, as in JAX.
 
 Every row of a batch has the same prompt length, so the position is one
 int (JAX carries it per row, all rows equal).
+
+Over a model row that spans processes (models/moondream/model.py) every
+process holds the whole gathered logits, so each picks the same token
+and sees the same rows done: the loop ends at the same step in every
+process, and decoding exchanges nothing beyond its layers' own
+all-reduces and the LM head's gather.
 """
 
 from __future__ import annotations
@@ -62,8 +68,9 @@ def prefill(
     compute dtype) ``torch.int8`` quantizes them per (B, H, slot), the
     padded slots at scale 1. ``act_quant``: the W8A8 prefill. Returns (last
     logits (B, V) fp32, cache or None, next position). A sharded model's
-    cache is a list of its model shards' caches, split by heads; its
-    logits are gathered over the vocabulary."""
+    cache is a list of its model shards' caches, split by heads (this
+    process's shards' over a model row that spans processes); its logits
+    are gathered over the vocabulary, whole in every process."""
     cfg = model.cfg
     b = token_ids.shape[0]
     tok = embed_tokens(model, token_ids)
@@ -80,7 +87,7 @@ def prefill(
     per_shard = kv if isinstance(kv, list) else [kv]
     caches = [_filled_cache(cfg, b, ks, vs, n, cache_dtype) for ks, vs in per_shard]
     del kv, per_shard
-    cache = caches if len(model.peers) else caches[0]
+    cache = caches if model.sharded else caches[0]
     return lm_logits(model, hidden[:, -1:, :])[:, 0], cache, s
 
 

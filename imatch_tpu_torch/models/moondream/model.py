@@ -53,7 +53,21 @@ columns and ``fc2`` by rows; each decoder layer's q, k, v and MLP-in by
 columns (by heads: the rotary stays per head) and ``out`` and ``fc2`` by
 rows, with one reduce of ``out(o) + fc2(gelu(m1))`` a layer; the LM head
 over the vocabulary, its (B, V) logits gathered. A KV cache is a list of
-per-shard caches, split by heads. The int8 modes run on one device.
+per-shard caches, split by heads (generate.py's ``prefill`` builds one
+for each of this process's shards). The int8 modes run on one device.
+
+Over a model row that spans processes (``shard_model`` given a grid that
+does) a process holds only its own model shards (the root, then
+``peers``) and a replica of every replicated leaf, and the model's
+``row_group`` is the row's process group, threaded as in the CLIP towers
+(models/clip/model.py): the vision encoder's Megatron pairs run K2 on
+this process's heads; the projector and each decoder layer enter their
+column-split projections through ``enter`` and reduce their row-split
+parts with the ordered all-reduce over the group, the ``fc2`` and
+``out`` biases added once after it in every process; the LM head's
+vocabulary slices are all-gathered in model-index order, so every
+process holds the whole (B, Sq, V) logits and picks the same greedy
+token with no further exchange. Its caches are this process's shards'.
 """
 
 from __future__ import annotations
@@ -64,9 +78,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from imatch_tpu_torch.models.clip.model import Encoder, LayerNorm32, _local
+from imatch_tpu_torch.models.clip.model import Encoder, LayerNorm32, _local, _run_encoder
 from imatch_tpu_torch.models.moondream.configs import MDTextConfig, MoondreamConfig
-from imatch_tpu_torch.ops.collectives import gather, reduce_sum
+from imatch_tpu_torch.ops.collectives import enter, gather, reduce_sum
 from imatch_tpu_torch.ops.quant import (
     ln_quant_rows_int8,
     qdot_int8,
@@ -98,14 +112,15 @@ class MDVisionTower(nn.Module):
         )
         self.post_ln = LayerNorm32(v.hidden_size, eps=v.layer_norm_eps)
 
-    def forward(self, pixels: torch.Tensor, peers: Sequence["MDVisionTower"] = ()) -> torch.Tensor:
+    def forward(self, pixels: torch.Tensor, peers: Sequence["MDVisionTower"] = (), group=None) -> torch.Tensor:
         """(B, H, W, 3) normalized pixels -> (B, P, D_vision). ``peers``:
-        the other model shards' towers (their encoder slices)."""
+        the other model shards' towers (their encoder slices); ``group``:
+        the model row's process group where it spans processes."""
         w = self.patch_embedding.weight
         x = self.patch_embedding(pixels.to(w.dtype).permute(0, 3, 1, 2))
         x = x.flatten(2).transpose(1, 2)  # (B, patches, D), row-major patches
         x = x + self.position_embedding.to(x.dtype)
-        return self.post_ln(self.encoder(x, False, "auto", [p.encoder for p in peers]))
+        return self.post_ln(_run_encoder(self.encoder, x, False, "auto", [p.encoder for p in peers], group))
 
 
 class MDProjector(nn.Module):
@@ -118,13 +133,14 @@ class MDProjector(nn.Module):
         """JAX's projector weights of each Linear (``EncoderLayer.jax_sources``)."""
         return {"fc1": (("w1", self.fc1.out_features),), "fc2": (("w2", self.fc2.out_features),)}
 
-    def forward(self, x: torch.Tensor, peers: Sequence["MDProjector"] = ()) -> torch.Tensor:
-        if not peers:
+    def forward(self, x: torch.Tensor, peers: Sequence["MDProjector"] = (), group=None) -> torch.Tensor:
+        if not peers and group is None:
             return self.fc2(_gelu(self.fc1(x)))
+        y = enter(x, group)
         parts = [
-            F.linear(_gelu(p.fc1(x.to(p.fc1.weight.device))), p.fc2.weight) for p in (self, *peers)
+            F.linear(_gelu(p.fc1(y.to(p.fc1.weight.device))), p.fc2.weight) for p in (self, *peers)
         ]
-        return reduce_sum(parts, x.device) + self.fc2.bias
+        return reduce_sum(parts, x.device, group) + self.fc2.bias
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +281,10 @@ class MDTextModel(nn.Module):
 class MoondreamModel(nn.Module):
     """Vision tower, projector and decoder; see the module docstring for
     the dtypes each holds (``cast_compute``). ``shards=M``: model shard
-    0's slice; ``peers``: the other shards' (``shard_model``)."""
+    0's slice; ``peers``: the other shards' (``shard_model``). Over a
+    model row that spans processes the root holds this process's first
+    model shard, ``peers`` its other local ones, and ``row_group`` is the
+    row's process group (None otherwise)."""
 
     def __init__(self, cfg: MoondreamConfig, shards: int = 1):
         super().__init__()
@@ -274,11 +293,17 @@ class MoondreamModel(nn.Module):
         self.projector = MDProjector(cfg, shards)
         self.text = MDTextModel(cfg.text, shards)
         self.peers = nn.ModuleList()
+        self.row_group = None
 
     @property
     def dtype(self) -> torch.dtype:
         """The compute dtype."""
         return self.text.token_embedding.weight.dtype
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the model runs over model shards (its caches a list)."""
+        return len(self.peers) > 0 or self.row_group is not None
 
 
 def _is_fp32_param(mod: nn.Module, model: MoondreamModel) -> bool:
@@ -389,9 +414,9 @@ def init_random(
 def encode_image_features(model: MoondreamModel, pixels: torch.Tensor) -> torch.Tensor:
     """(B, H, W, 3) normalized pixels -> (B, P, D_text) LM-space embeds,
     in the compute dtype, over the model's shards."""
-    peers = list(model.peers)
-    x = model.vision(pixels, [p.vision for p in peers])
-    return model.projector(x, [p.projector for p in peers])
+    peers, group = list(model.peers), model.row_group
+    x = model.vision(pixels, [p.vision for p in peers], group)
+    return model.projector(x, [p.projector for p in peers], group)
 
 
 class KVCache(NamedTuple):
@@ -554,14 +579,17 @@ def decoder_forward(
     slot's codes and scales and attends over the codes. ``act_quant``: the
     W8A8 products (prefill only, see the module docstring).
 
-    A sharded model (``peers``) runs each layer's projections and
-    attention on every model shard over its heads and reduces
-    ``out(o) + fc2(gelu(m1))`` once; its cache is a list of per-shard
-    caches, and ``collect_kv`` gives a list of per-shard ``(K, V)``."""
+    A sharded model (``peers``, or a ``row_group``) runs each layer's
+    projections and attention on every model shard of this process over
+    its heads and reduces ``out(o) + fc2(gelu(m1))`` once (over the row's
+    processes where it spans them); its cache is a list of this process's
+    per-shard caches, and ``collect_kv`` gives a list of per-shard ``(K,
+    V)``."""
     t = model.cfg.text
     b, sq, d = embeds.shape
     texts = [model.text, *(p.text for p in model.peers)]
-    tp = len(texts) > 1
+    group = model.row_group
+    tp = model.sharded
     if tp and act_quant:
         raise ValueError("the W8A8 prefill runs on one device")
     if cache is None and start_pos != 0:
@@ -584,14 +612,14 @@ def decoder_forward(
             attn_out, mlp_out = layer.residual(o, m1, act_quant)
             x = x + attn_out + mlp_out  # Phi parallel residual
             continue
-        y = layer.ln(x)
+        y = enter(layer.ln(x), group)
         parts = []
         for text, c, kv_m in zip(texts, caches, kv):
             lm = text.layers[li]
             qk, v, m1 = lm.project_normed(y.to(lm.out.weight.device))
             o = _attend_layer(qk, v, c, kv_m, li, start_pos, hidden, cos, sin, t)
             parts.append(F.linear(o, lm.out.weight) + F.linear(_gelu(m1), lm.fc2.weight))
-        x = x + reduce_sum(parts, x.device) + (layer.out.bias + layer.fc2.bias)
+        x = x + reduce_sum(parts, x.device, group) + (layer.out.bias + layer.fc2.bias)
     if cache is not None:
         return x, cache
     if not collect_kv:
@@ -603,14 +631,15 @@ def decoder_forward(
 @torch.no_grad()
 def lm_logits(model: MoondreamModel, hidden: torch.Tensor) -> torch.Tensor:
     """(B, Sq, D) -> (B, Sq, V) fp32 logits; over a sharded model each
-    shard's vocabulary slice, gathered."""
+    shard's vocabulary slice, gathered in model-index order (over the
+    row's processes where it spans them)."""
     h = model.text.final_ln(hidden)
     head = model.text.lm_head
     if isinstance(head, Int8Linear):
         return head.logits(h)
     heads = [head, *(p.text.lm_head for p in model.peers)]
     parts = [F.linear(h.to(w.weight.device).float(), w.weight, w.bias) for w in heads]
-    return gather(parts, h.device, dim=-1)
+    return gather(parts, h.device, dim=-1, group=model.row_group)
 
 
 @torch.no_grad()

@@ -26,7 +26,8 @@ raises where no group is joined (none answers from one process alone):
   bit for bit, and runs repeat;
 - ``hop``: one point-to-point step (``batch_isend_irecv``): tensors to the
   next process of a line and the same shapes from the previous one;
-- ``send_async`` and ``recv``: one tensor from one process to another;
+- ``send_async`` and ``recv``: one tensor from one process to another,
+  paired by a tag (GPipe's activations and their gradients);
 - ``broadcast``: a tensor from the process that holds it to all.
 
 The backend is gloo: NCCL cannot put two ranks on one GPU, which is the
@@ -178,19 +179,21 @@ def hop(tensors: Sequence[torch.Tensor], dst: int, src: int) -> List[torch.Tenso
     return [b.to(dev) for b in bufs]
 
 
-def send_async(t: torch.Tensor, dst: int):
+def send_async(t: torch.Tensor, dst: int, tag: int = 0):
     """``t`` sent to process ``dst`` without waiting; wait on the returned
-    handle (which keeps the host copy alive) before reusing it."""
+    handle (which keeps the host copy alive) before reusing it. ``tag``
+    pairs it with the ``recv`` of the same tag."""
     _require("send")
     host = _host(t)
-    return host, dist.isend(host, dst)
+    return host, dist.isend(host, dst, tag=tag)
 
 
-def recv(shape, dtype: torch.dtype, src: int, device) -> torch.Tensor:
-    """A tensor of ``shape`` and ``dtype`` from process ``src``."""
+def recv(shape, dtype: torch.dtype, src: int, device, tag: int = 0) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` from process ``src``, sent with
+    ``tag``."""
     _require("recv")
     buf = torch.empty(shape, dtype=dtype, device="cpu" if dist.get_backend() == "gloo" else device)
-    dist.recv(buf, src)
+    dist.recv(buf, src, tag=tag)
     return buf.to(device)
 
 

@@ -40,13 +40,15 @@ Given a grid whose model row spans processes (parallel/mesh.py), each
 process holds only its own model shards' slices (its first local shard
 in the root module, the rest in ``peers``) and a replica of every
 replicated leaf (the LayerNorms, embeddings, ``logit_scale``, the
-``out``/``fc2`` biases, which each process adds once after the row's
-all-reduce); the root's ``row_group`` is the row's process group. Such a
+``out``/``fc2`` biases and the projector's, which each process adds once
+after the row's all-reduce); the root's ``row_group`` is the row's
+process group. A CLIP model and a Moondream model alike (the Moondream
+encode, prefill and greedy decode run over the row, its LM head's
+vocabulary gathered in every process: models/moondream/model.py). Such a
 model's ``gather_named`` and ``shard_named`` gather and split across the
-row's processes (a collective over the row: a checkpoint's save). The
-Moondream prefill under TP stays in one process: no JAX path serves it
-over a process-spanning model axis, and ``shard_model`` refuses such a
-row with a ValueError.
+row's processes (a collective over the row: a checkpoint's save). Two
+layouts stay refused with a ValueError: the int8 modes (on one device
+only) and a process that holds two data rows of a spanning grid.
 """
 
 from __future__ import annotations
@@ -326,26 +328,22 @@ def shard_model(model: nn.Module, devices: Sequence) -> nn.Module:
     grid that spans processes, this process's own model shards of its data
     row (every process calls it on the same ``model``), the replicated
     leaves in each, and the root's ``grid``, ``row_group``,
-    ``model_first`` and ``model_total`` set. A Moondream model on a model
-    row that spans processes raises ValueError."""
+    ``model_first`` and ``model_total`` set: a CLIP or a Moondream model
+    (bf16 or fp32). A process holding two data rows of such a grid raises
+    ValueError."""
+    if model_shards(model) != 1:
+        raise ValueError("the model is sharded already")
+    if any(True for _ in model.buffers()):
+        raise ValueError("the int8 modes run on one device: shard a bf16 or fp32 model")
     grid = devices if isinstance(devices, Grid) else None
     first, total, group = 0, None, None
     if grid is not None and grid.spans_processes:
-        if hasattr(model, "projector") and any(grid.line_spans(AXIS_MODEL, d) for d in range(grid.shape[AXIS_DATA])):
-            raise ValueError(
-                "the Moondream prefill under TP runs in one process: its model axis cannot span "
-                f"processes ({grid!r})"
-            )
         devices, first, group = _local_row(grid)
         total = grid.model
     elif grid is not None:
         devices = grid.row(0)
     devices = [torch.device(d) for d in devices]
     shards = len(devices)
-    if model_shards(model) != 1:
-        raise ValueError("the model is sharded already")
-    if any(True for _ in model.buffers()):
-        raise ValueError("the int8 modes run on one device: shard a bf16 or fp32 model")
     if total is None and shards == 1:
         return model.to(devices[0])
     total = total or shards

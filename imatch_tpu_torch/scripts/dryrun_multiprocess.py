@@ -33,18 +33,27 @@ in every process against what the same grid shape gives in one process
   ``--batch`` frames (the grid's shard count kept, a block a process);
 - ``train``: ``--steps`` DP + TP steps at ``--train-batch`` on the
   (procs / mp, mp) grid (losses within rtol 1e-6), then a checkpoint
-  saved there restored in one process at mp = 1; ``--train-layers V,T``
-  cuts the config's image and text towers to V and T layers (full
-  width);
+  saved there restored in one process at mp = 1;
 - ``ring``: causal ring attention at ``--ring`` B,H,S,Dh over the data
   axis (procs x local-devices positions), output and gradient;
 - ``gpipe``: the config's image-tower layers through ``gpipe_scan``, one
-  stage a process, at ``--pipe-batch`` rows and ``--microbatches``.
+  stage a process, at ``--pipe-batch`` rows and ``--microbatches``: the
+  forward, then the backward of the output's mean square (x's gradient
+  in every process, each process's own stage's layers' gradients);
+- ``md``: the Moondream encode, prefill and greedy decode of
+  ``--md-config`` (``MD_BATCH`` images, ``MD_PROMPT`` prompt ids,
+  ``MD_NEW`` tokens) over one model row across every process at each of
+  ``--md-mp`` (mp / procs shards a process): the logits, the greedy
+  tokens and K2 at (B, H / mp, S, Dh) in each process.
+
+``--layers V,T`` cuts the CLIP towers of ``tp`` and ``train`` to V image
+and T text layers (full width).
 
 With ``--write`` the workers leave their results under ``--out`` as
 ``.npz`` and ``.json`` files (a caller compares them with the JAX
 package). ``--init-npz`` starts ``train`` from a JAX-layout param tree
-saved flat (keys ``vision/layers/attn/wq`` ...) instead of ``--seed``.
+saved flat (keys ``vision/layers/attn/wq`` ...) instead of ``--seed``;
+``--md-tree`` gives ``md`` a JAX Moondream tree in the same form.
 ``--reference caller`` leaves ``train``'s loss check to the caller, which
 computes the one-process grid's steps while the workers run (chip_smoke's
 phase 8i); process 0 still restores the checkpoint and checks it.
@@ -52,7 +61,7 @@ phase 8i); process 0 still restores the checkpoint and checks it.
 Usage:
     python -m imatch_tpu_torch.scripts.dryrun_multiprocess --device cpu      # 2 procs x 4 cpu shards
     python -m imatch_tpu_torch.scripts.dryrun_multiprocess --device cpu --local-devices 2 \
-        --paths sharded,ivf,tp,embed,ring,gpipe                               # every path but train
+        --paths sharded,ivf,tp,embed,ring,gpipe,md --md-mp 2,4                # every path but train
     python -m imatch_tpu_torch.scripts.dryrun_multiprocess --device cpu --procs 4 --paths train
     python -m imatch_tpu_torch.scripts.dryrun_multiprocess --procs 2 --local-devices 2 \\
         --rows 262144 --dim 768 --queries 16                                  # on the card
@@ -83,6 +92,7 @@ import time
 
 T0 = time.perf_counter()  # a worker's start, for its stage times
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+MD_BATCH, MD_PROMPT, MD_NEW = 4, 8, 8  # md: images, prompt ids after BOS, greedy tokens
 
 
 def _local_device(name: str, worker: int):
@@ -140,6 +150,8 @@ def worker(args) -> int:
                 seconds[name] = time.perf_counter() - T0
         row["seconds_since_start"] = seconds  # at the end of each stage
         row["peak_host_gb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        if dev.type == "cuda":
+            row["peak_device_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         print(f"[proc {me}] " + json.dumps(row), flush=True)
     finally:
         distributed.shutdown()
@@ -300,6 +312,20 @@ class _K2Watch:
         return out
 
 
+def grad_off(got, ref, bf16: bool) -> tuple:
+    """(largest error, whether it is outside the bar) of a gradient
+    against the one-process run's. In bf16 the bar is the outputs' one
+    (2^-6 + 2^-8 |ref|) with its absolute part scaled by the reference's
+    largest entry: a mean loss over millions of outputs puts gradients
+    near 1e-7, far below a bar made for magnitudes near 1. In fp32 it is
+    rtol 1e-6. An all-zero reference is outside too, so a gradient that
+    never arrived cannot pass beside one."""
+    a, b = got.detach().float().cpu().flatten(), ref.detach().float().cpu().flatten()
+    err, scale = (a - b).abs(), float(b.abs().max())
+    bar = 2 * 2.0**-7 * scale + 2.0**-8 * b.abs() if bf16 else 1e-6 * b.abs()
+    return float(err.max()), bool(scale == 0 or (err > bar).any())
+
+
 def _dtype(args, dev):
     import torch
 
@@ -427,18 +453,18 @@ def ivf_path(args, dev, me, out) -> dict:
 
 
 def tp_path(args, dev, me, out) -> dict:
-    """The CLIP towers at ``--mp`` model shards, one a process: every
-    process returns the one-process grid's embeddings; K2 runs at (B,
-    H / mp, S, Dh) in each, held against its plain version."""
+    """The CLIP towers at ``--mp`` model shards, one a process (at
+    ``--layers``' depth): every process returns the one-process grid's
+    embeddings; K2 runs at (B, H / mp, S, Dh) in each, held against its
+    plain version."""
     import numpy as np
     import torch
 
-    from imatch_tpu_torch.models.clip.configs import get_config
     from imatch_tpu_torch.models.clip.model import encode_image, encode_text, init_random
     from imatch_tpu_torch.parallel.mesh import Grid, make_mesh
     from imatch_tpu_torch.parallel.sharding import shard_model
 
-    cfg, dtype = get_config(args.config), _dtype(args, dev)
+    cfg, dtype = train_config(args.config, args.layers), _dtype(args, dev)
     grid = make_mesh(args.mp, [dev])
 
     def model(g):
@@ -452,7 +478,8 @@ def tp_path(args, dev, me, out) -> dict:
     corpus = torch.nn.functional.normalize(
         torch.randn((4096, cfg.projection_dim), generator=torch.Generator(device=dev).manual_seed(3), device=dev), dim=1
     )
-    row = {"config": cfg.name, "batch": args.batch, "grid": grid.shape, "k2_launches": k2.launches, "k2_held": k2.held()}
+    row = {"config": cfg.name, "layers": [cfg.vision.num_layers, cfg.text.num_layers], "batch": args.batch}
+    row.update(grid=grid.shape, k2_launches=k2.launches, k2_held=k2.held())
 
     def one_process():
         r = model(Grid([dev] * args.mp, args.mp))
@@ -569,7 +596,7 @@ def train_path(args, dev, me, out) -> dict:
     from imatch_tpu_torch.parallel.sharding import gather_named
     from imatch_tpu_torch.parallel.train import make_optimizer
 
-    cfg, dtype = train_config(args.config, args.train_layers), _dtype(args, dev)
+    cfg, dtype = train_config(args.config, args.layers), _dtype(args, dev)
     key = _init_tree(args.init_npz)
     key = args.seed if key is None else key
     batches = [clip_batch(cfg, args.train_batch, args.seed + 100 + i) for i in range(args.steps)]
@@ -704,15 +731,20 @@ def ring_path(args, dev, me, out) -> dict:
 
 def gpipe_path(args, dev, me, out) -> dict:
     """The config's image-tower layers through ``gpipe_scan``, one stage a
-    process, ``--microbatches``: equal to the one-process
-    pipeline over as many stages; K2 launched layers / stages x M times a
-    stage; under autograd a RuntimeError."""
+    process, ``--microbatches``: equal to the one-process pipeline over as
+    many stages, K2 launched layers / stages x M times a stage. Then the
+    backward of a fixed loss (the output's mean square; the body's
+    attention ``mha_xla``, as K2 refuses grad on the card): x's gradient,
+    the same in every process, and this process's stages' layers'
+    gradients against the one-process pipeline's (``grad_off``: within
+    rtol 1e-6 on the CPU, the bf16 bar scaled to each gradient on the
+    card)."""
     import numpy as np
     import torch
 
     from imatch_tpu_torch.models.clip.configs import get_config
     from imatch_tpu_torch.models.clip.model import init_random
-    from imatch_tpu_torch.parallel import gpipe_scan
+    from imatch_tpu_torch.parallel import distributed, gpipe_scan
     from imatch_tpu_torch.parallel.mesh import Grid, make_mesh
 
     cfg, dtype = get_config(args.config), _dtype(args, dev)
@@ -736,26 +768,189 @@ def gpipe_path(args, dev, me, out) -> dict:
         "config": cfg.name, "layers": vc.num_layers, "stages": stages, "microbatches": m,
         "k2_launches": k2.launches, "k2_held": k2.held(), "equal": _equal(got, want),
     }  # fmt: skip
-    try:
-        gpipe_scan(body, x.clone().requires_grad_(), encoder.layers, mesh=grid, axis="data", microbatches=m)
-        row["grad_refused"] = False
-    except RuntimeError as e:
-        row["grad_refused"] = "forward only" in str(e)
     local = len(grid.local_shards())
     want_k2 = vc.num_layers // stages * local * m if dev.type == "cuda" else 0
-    _check(row["equal"] and row["grad_refused"], f"proc {me}: gpipe over processes: {row}")
+    _check(row["equal"], f"proc {me}: gpipe over processes: {row}")
     _check(k2.launches == want_k2, f"proc {me}: K2 launched {k2.launches} times, not {want_k2}")
     _check(all(h["ok"] for h in row["k2_held"].values()), f"proc {me}: K2 off its plain version: {row['k2_held']}")
-    if dev.type == "cuda":
+
+    # the backward
+    per = vc.num_layers // stages
+    own = [i for s in grid.local_shards() for i in range(s * per, (s + 1) * per)]
+    names = [n for n, _ in encoder.layers.named_parameters()]
+    encoder.requires_grad_(True)
+
+    def grad_body(h, layer):
+        return layer(h, False, "xla"), None
+
+    def pipe_grad(mesh):
+        encoder.zero_grad(set_to_none=True)
+        xg = x.clone().requires_grad_()
+        loss = gpipe_scan(grad_body, xg, encoder.layers, mesh=mesh, axis="data", microbatches=m).float().square().mean()
+        loss.backward()
+        return loss.detach(), xg.grad
+
+    loss, gx = pipe_grad(grid)
+    grads = {n: p.grad for n, p in encoder.layers.named_parameters() if int(n.split(".")[0]) in own}
+    foreign = [n for n, p in encoder.layers.named_parameters() if p.grad is not None and n not in grads]
+    kept = {}
+
+    def one_process():
+        ref_loss, ref_gx = pipe_grad(Grid([dev] * len(grid)))
+        kept["flat"] = torch.cat([p.grad.flatten() for p in encoder.layers.parameters()])
+        return float(ref_loss), ref_gx.cpu()
+
+    ref_loss, ref_gx = _shared(me, one_process)
+    flat = distributed.broadcast(kept.pop("flat", None), 0, dev)
+    shapes = [p.shape for p in encoder.layers.parameters()]
+    ref = {n: f.view(shape) for n, f, shape in zip(names, flat.split([sh.numel() for sh in shapes]), shapes)}
+    del flat
+    cuda, bf16 = dev.type == "cuda", dtype == torch.bfloat16
+    gx_err, gx_off = grad_off(gx, ref_gx, bf16)
+    layer_errs = [grad_off(t, ref[n], bf16) for n, t in grads.items()]
+    row["backward"] = {
+        "loss": float(loss), "one_process_loss": ref_loss, "own_layers": own,
+        "x_grad_max_abs": float(ref_gx.abs().max()), "x_grad_max_abs_err": gx_err, "x_grad_equal": _equal(gx, ref_gx),
+        "x_grad_same_in_every_process": all(_equal(gx, t) for t in distributed.all_gather(gx)),
+        "layer_grad_max_abs_err": max(e for e, _ in layer_errs), "layer_grads_equal": all(_equal(t, ref[n]) for n, t in grads.items()),
+        "other_stages_grad_none": not foreign,
+    }  # fmt: skip
+    b = row["backward"]
+    b["ok"] = (
+        not gx_off and not any(o for _, o in layer_errs) and b["x_grad_same_in_every_process"]
+        and b["other_stages_grad_none"] and len(grads) == len(own) * len(names) // vc.num_layers
+    )  # fmt: skip
+    _check(b["ok"], f"proc {me}: gpipe's backward over processes: {b}")
+    if cuda:
+        row["backward"]["ms"] = _host_ms(lambda: pipe_grad(grid), dev, iters=2, warm=False)
+        row["backward"]["one_process_ms"] = _shared(
+            me, lambda: _host_ms(lambda: pipe_grad(Grid([dev] * len(grid))), dev, iters=2, warm=False)
+        )
         with torch.no_grad():
             row["ms"] = _host_ms(lambda: pipe(grid), dev, iters=3)
             row["one_process_ms"] = _shared(me, lambda: _host_ms(lambda: pipe(Grid([dev] * len(grid))), dev, iters=3))
     if out and args.write:
-        np.savez(os.path.join(out, f"gpipe_p{me}.npz"), got=got.float().cpu().numpy())
+        arrays = {"got": got, "loss": loss, "x_grad": gx, **{f"layers.{n}": t for n, t in grads.items()}}
+        np.savez(os.path.join(out, f"gpipe_p{me}.npz"), **{n: t.detach().float().cpu().numpy() for n, t in arrays.items()})
+    encoder.zero_grad(set_to_none=True)
+    encoder.requires_grad_(False)
     return row
 
 
-PATHS = {"ivf": ivf_path, "tp": tp_path, "embed": embed_path, "train": train_path, "ring": ring_path, "gpipe": gpipe_path}
+def md_batch(cfg, b: int, prompt: int, seed: int):
+    """(pixels (b, H, W, 3) fp32, prompt ids (b, 1 + prompt) int64, BOS
+    first) from a numpy seed, the same in every process."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    size = cfg.vision.image_size
+    px = rng.standard_normal((b, size, size, 3)).astype(np.float32)
+    tok = rng.integers(0, cfg.text.vocab_size, (b, 1 + prompt)).astype(np.int64)
+    tok[:, 0] = cfg.text.bos_token_id
+    return px, tok
+
+
+def md_path(args, dev, me, out) -> dict:
+    """The Moondream encode, prefill and greedy decode of ``--md-config``
+    (``--md-tree``'s weights, else seeded) over one model row that spans
+    every process, at each ``--md-mp`` (mp / procs model shards a
+    process): every process returns the one-process grid's prefill logits
+    (per-row cosine >= 0.999; equal on the CPU) and greedy tokens, which
+    process 0 computes; K2 runs at (B, H / mp, S, Dh) on each of this
+    process's shards, held against its plain version."""
+    import numpy as np
+    import torch
+
+    from imatch_tpu_torch.models.moondream.bridge import md_params_from_numpy
+    from imatch_tpu_torch.models.moondream.configs import get_md_config
+    from imatch_tpu_torch.models.moondream.generate import _decode_step, greedy_generate, init_gen_state, prefill
+    from imatch_tpu_torch.models.moondream.model import encode_image_features, init_random
+    from imatch_tpu_torch.parallel.mesh import Grid, make_mesh
+    from imatch_tpu_torch.parallel.sharding import shard_model
+
+    cfg, dtype = get_md_config(args.md_config), _dtype(args, dev)
+    tree = _init_tree(args.md_tree)
+    px, tok = (torch.from_numpy(a).to(dev) for a in md_batch(cfg, MD_BATCH, MD_PROMPT, args.seed + 7))
+    n = MD_NEW
+    cuda = dev.type == "cuda"
+
+    def full():
+        if tree is not None:
+            return md_params_from_numpy(tree, cfg, device=dev, dtype=dtype)
+        return init_random(cfg, seed=args.seed, device=dev, dtype=dtype)
+
+    def times(model, feats, logits, cache, pos) -> dict:
+        """Host ms of the prefill (the image features given) and of one
+        decode step (a slot the decode wrote, written again)."""
+        state = init_gen_state(model, logits, cache, pos, max_new=2)
+        return {  # the run that precedes warmed both
+            "prefill_ms": _host_ms(lambda: prefill(model, feats, tok, max_new=n), dev, iters=2, warm=False),
+            "decode_step_ms": _host_ms(lambda: _decode_step(model, state), dev, iters=5, warm=False),
+        }
+
+    def run(model):
+        feats = encode_image_features(model, px)
+        logits, cache, pos = prefill(model, feats, tok, max_new=n)
+        return feats, logits, cache, pos, greedy_generate(model, logits, cache, pos, max_new=n).tokens
+
+    row = {"config": cfg.name, "batch": MD_BATCH, "prompt": MD_PROMPT, "new_tokens": n, "k2_launches": 0}
+    for mp in (int(v) for v in args.md_mp.split(",")):
+        if mp % args.procs:
+            raise ValueError(f"--md-mp {mp} is not a multiple of --procs {args.procs}")
+        grid = make_mesh(mp, [dev] * (mp // args.procs))
+        model = shard_model(full(), grid)
+        gc.collect()
+        with _K2Watch() as k2:
+            feats, logits, cache, pos, tokens = run(model)
+
+        def one_process():
+            ref = shard_model(full(), Grid([dev] * mp, mp))
+            r_feats, r_logits, r_cache, r_pos, r_tokens = run(ref)
+            got = {"logits": r_logits.cpu(), "tokens": r_tokens.cpu()}
+            if cuda:
+                got.update(times(ref, r_feats, r_logits, r_cache, r_pos))
+            return got
+
+        ref = _shared(me, one_process)
+        if cuda:
+            torch.cuda.empty_cache()
+        cos = torch.nn.functional.cosine_similarity(logits.float().cpu(), ref["logits"].float(), dim=-1)
+        r = {
+            "grid": grid.shape, "model_first": model.model_first, "local_shards": len(cache),
+            "k2_launches": k2.launches, "k2_held": k2.held(), "min_cosine": float(cos.min()),
+            "logits_equal": _equal(logits, ref["logits"]), "tokens_equal": _equal(tokens, ref["tokens"]),
+            "tokens": tokens.cpu().tolist(),
+        }  # fmt: skip
+        want_k2 = cfg.vision.num_layers * len(cache) if cuda else 0
+        _check(
+            r["min_cosine"] >= 0.999 and r["tokens_equal"] and (cuda or r["logits_equal"]),
+            f"proc {me}: the Moondream prefill at mp = {mp} != the one-process grid: {r}",
+        )
+        _check(k2.launches == want_k2, f"proc {me}: K2 launched {k2.launches} times, not {want_k2}")
+        _check(all(h["ok"] for h in r["k2_held"].values()), f"proc {me}: K2 off its plain version: {r['k2_held']}")
+        if out and args.write:
+            caches = {f"cache{j}_{kv}": getattr(c, kv).float().cpu().numpy() for j, c in enumerate(cache) for kv in "kv"}
+            np.savez(
+                os.path.join(out, f"md_p{me}_mp{mp}.npz"),
+                logits=logits.float().cpu().numpy(), tokens=tokens.cpu().numpy(), pos=pos,
+                model_first=model.model_first, **caches,
+            )  # fmt: skip
+        if cuda:
+            r.update(times(model, feats, logits, cache, pos))
+            r.update({f"one_process_{k}": ref[k] for k in ("prefill_ms", "decode_step_ms")})
+        row[f"mp{mp}"] = r
+        row["k2_launches"] += k2.launches
+        del model, feats, logits, cache
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return row
+
+
+PATHS = {
+    "ivf": ivf_path, "tp": tp_path, "embed": embed_path, "train": train_path, "ring": ring_path, "gpipe": gpipe_path,
+    "md": md_path,
+}  # fmt: skip
 
 
 def _free_port() -> int:
@@ -781,14 +976,16 @@ def launcher(args) -> int:
         "--train-batch", str(args.train_batch), "--steps", str(args.steps), "--ring", args.ring,
         "--pipe-batch", str(args.pipe_batch), "--microbatches", str(args.microbatches),
         "--centres", str(args.centres), "--seed", str(args.seed), "--out", out_dir,
-        "--reference", args.reference,
+        "--reference", args.reference, "--md-config", args.md_config, "--md-mp", args.md_mp,
     ]  # fmt: skip
     if args.write:
         common.append("--write")
     if args.init_npz:
         common += ["--init-npz", args.init_npz]
-    if args.train_layers:
-        common += ["--train-layers", args.train_layers]
+    if args.layers:
+        common += ["--layers", args.layers]
+    if args.md_tree:
+        common += ["--md-tree", args.md_tree]
     procs, outs = [], []
     for pid in range(args.procs):
         out = tempfile.TemporaryFile(mode="w+")
@@ -840,12 +1037,12 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=8)
     ap.add_argument("-k", type=int, default=10)
     ap.add_argument("--timeout", type=int, default=300, help="seconds for the workers, and each collective's bound")
-    ap.add_argument("--paths", default="sharded", help="comma-separated: sharded, ivf, tp, embed, train, ring, gpipe")
+    ap.add_argument("--paths", default="sharded", help="comma-separated: sharded, ivf, tp, embed, train, ring, gpipe, md")
     ap.add_argument("--config", default="tiny", help="the CLIP config of tp, embed, train and gpipe")
     ap.add_argument("--batch", type=int, default=4, help="tp's images and texts, embed's frames")
     ap.add_argument("--mp", type=int, default=2, help="the model axis of tp and train (one shard a process)")
     ap.add_argument("--train-batch", type=int, default=8)
-    ap.add_argument("--train-layers", default=None, help="train: V,T image and text layers (default: the config's)")
+    ap.add_argument("--layers", default=None, help="tp and train: V,T image and text layers (default: the config's)")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--ring", default="2,3,16,8", help="B,H,S,Dh")
     ap.add_argument("--pipe-batch", type=int, default=8)
@@ -855,6 +1052,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="the workers' directory (a temporary one by default)")
     ap.add_argument("--write", action="store_true", help="leave each path's results under --out")
     ap.add_argument("--init-npz", default=None)
+    ap.add_argument("--md-config", default="tiny-md", help="md: the Moondream config")
+    ap.add_argument("--md-tree", default=None, help="md: a JAX-layout Moondream tree saved flat (default: --seed)")
+    ap.add_argument("--md-mp", default="2", help="md: comma-separated model axes, each one row over every process")
     ap.add_argument(
         "--reference", choices=("process0", "caller"), default="process0",
         help="train: process 0 checks against the one-process grid, or the caller does (the workers stop after the save)",

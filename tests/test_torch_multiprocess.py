@@ -12,12 +12,19 @@
   prepares only its own shards, ``sharded`` and ``ivf-sharded`` alike;
   the search and the IVF build's exchange refuse to go on without the
   group. A grid whose processes each hold a whole model row builds, its
-  model axis with no cross-process group; the Moondream prefill under TP
-  refuses a model row that spans processes. The paths over joined
-  processes are tests/test_torch_grid_processes.py's.
+  model axis with no cross-process group. ``shard_model`` over a spanning
+  grid refuses the two layouts it does not serve: an int8 model (CLIP or
+  Moondream) and a process holding two data rows. The paths over joined
+  processes, the Moondream prefill over a spanning model row among them,
+  are tests/test_torch_grid_processes.py's.
 - Leaving the group forgets the grids made under it: after ``shutdown``
   and a new ``initialize`` in the same process, a list of an old grid's
   devices makes a new grid.
+- The dryrun's bar for GPipe's gradients (``grad_off``) holds at the
+  scale of a mean loss over millions of outputs (entries near 1e-7): in
+  bf16 and fp32 it passes the reference itself and rejects a zero, a
+  5% larger or a missing (all-zero) gradient; in bf16 it passes the
+  reference rounded to bf16.
 """
 
 import os
@@ -31,12 +38,13 @@ import torch
 
 from imatch_tpu_torch.index import ivf as _ivf
 from imatch_tpu_torch.models.moondream.configs import TINY_MD
-from imatch_tpu_torch.models.moondream.model import MoondreamModel
+from imatch_tpu_torch.models.moondream.model import init_random, quantize_int8
 from imatch_tpu_torch.parallel.dist_ivf import prepare_sharded_ivf
 from imatch_tpu_torch.parallel import distributed
 from imatch_tpu_torch.parallel.dist_search import prepare_sharded_corpus, sharded_topk_prepared
 from imatch_tpu_torch.parallel.mesh import Grid, make_mesh
 from imatch_tpu_torch.parallel.sharding import shard_model
+from imatch_tpu_torch.scripts.dryrun_multiprocess import grad_off
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -132,10 +140,21 @@ def test_model_axis_cannot_span_processes():
 
 
 def test_moondream_tp_refuses_a_model_row_across_processes():
-    with torch.device("meta"):
-        model = MoondreamModel(TINY_MD)
-    with pytest.raises(ValueError, match="Moondream prefill under TP runs in one process"):
+    """What stays refused of a Moondream model on a model row across
+    processes: its int8 modes (one device only), before any exchange. A
+    bf16 or fp32 one is served (tests/test_torch_grid_processes.py)."""
+    model = quantize_int8(init_random(TINY_MD, seed=0, device="cpu", dtype=torch.float32))
+    with pytest.raises(ValueError, match="int8 modes run on one device"):
         shard_model(model, Grid(["cpu"] * 2, model=2, owners=[0, 1]))
+
+
+def test_shard_model_refuses_two_data_rows_in_one_process():
+    """A spanning grid whose processes each hold two data rows (each row
+    inside one process): a model over a spanning grid takes one data row
+    a process."""
+    model = init_random(TINY_MD, seed=0, device="cpu", dtype=torch.float32)
+    with pytest.raises(ValueError, match="one data row a process"):
+        shard_model(model, Grid(["cpu"] * 8, model=2, owners=[0] * 4 + [1] * 4))
 
 
 def _join_alone():
@@ -162,3 +181,18 @@ def test_rejoin_forgets_the_grids_of_the_group_left():
         assert make_mesh(list(new)) is new
     finally:
         distributed.shutdown()
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("case", ["same", "bf16_rounded", "zero", "larger", "no_reference"])
+def test_gpipe_grad_bar_rejects_a_wrong_gradient(case, bf16):
+    ref = torch.from_numpy(np.random.default_rng(0).standard_normal((64, 32)).astype(np.float32)) * 1e-7
+    got = {
+        "same": ref, "bf16_rounded": ref.bfloat16().float(), "zero": torch.zeros_like(ref),
+        "larger": ref * 1.05, "no_reference": torch.zeros_like(ref),
+    }[case]  # fmt: skip
+    if case == "no_reference":
+        ref = torch.zeros_like(ref)
+    err, off = grad_off(got, ref, bf16)
+    assert err == float((got - ref).abs().max())
+    assert off == (case in ("zero", "larger", "no_reference") or (case == "bf16_rounded" and not bf16))

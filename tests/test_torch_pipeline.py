@@ -8,6 +8,9 @@ conftest.py asks for. Ports of tests/test_parallel.py:313-396, and more:
   8 layers from numpy weights: the port against JAX's ``lax.scan`` and
   JAX's ``gpipe_scan``, within rtol 1e-5, atol 1e-6; the stack given in
   JAX's form (a dict of stacked tensors) and as a list of layers;
+- the gradient of a sum of squares of the output, in x and in the stack,
+  against ``jax.grad`` of JAX's ``gpipe_scan`` and of ``lax.scan`` at the
+  same (stages, microbatches), within the same bars;
 - the tiny CLIP vision encoder from ``jax.random.key(0)``, carried across
   by the bridge, over 2 stages of the port's ``Encoder.layers`` (4
   microbatches): against JAX's ``_encoder(attn_impl="xla")`` within rtol
@@ -15,7 +18,10 @@ conftest.py asks for. Ports of tests/test_parallel.py:313-396, and more:
 - a layer count the stages do not divide, and a batch the microbatches
   do not divide, raise ``ValueError``;
 - bubble ticks run no layer: the body runs L x M times, not
-  L x (M + P - 1) as JAX's SPMD schedule does.
+  L x (M + P - 1) as JAX's SPMD schedule does;
+- under autograd the caller's modules take their ``.grad`` when they sit
+  on their stages' devices, and a module on another device (it would run
+  as a copy that takes the gradient) raises ``ValueError``.
 """
 
 import jax
@@ -73,6 +79,29 @@ def test_gpipe_matches_jax_scan_and_gpipe(stages, micro, form):
     np.testing.assert_allclose(got.numpy(), np.asarray(pipe), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("stages,micro", [(2, 4), (4, 2), (8, 8)])
+def test_gpipe_gradient_matches_jax_grad(stages, micro):
+    x, stacked = _stack()
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = {k: torch.from_numpy(v).requires_grad_() for k, v in stacked.items()}
+    out = gpipe_scan(_torch_body, tx, tw, mesh=make_mesh(stages, CPU8), microbatches=micro)
+    out.square().sum().backward()
+    jx, jw = jnp.asarray(x), {k: jnp.asarray(v) for k, v in stacked.items()}
+    mesh = jax_mesh.make_mesh(model_parallel=stages)
+
+    def scan_loss(x, w):
+        return jnp.sum(jax.lax.scan(_jax_body, x, w)[0] ** 2)
+
+    def pipe_loss(x, w):
+        return jnp.sum(jax_gpipe(_jax_body, x, w, mesh=mesh, microbatches=micro) ** 2)
+
+    for loss in (scan_loss, pipe_loss):
+        gx, gw = jax.grad(loss, argnums=(0, 1))(jx, jw)
+        np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), rtol=1e-5, atol=1e-6)
+        for k in tw:
+            np.testing.assert_allclose(tw[k].grad.numpy(), np.asarray(gw[k]), rtol=1e-5, atol=1e-6)
+
+
 def test_gpipe_clip_encoder_layers_match_jax_encoder():
     jcfg = jax_configs.TINY
     tree = jax.tree.map(np.asarray, init_params(jax.random.key(0), jcfg))
@@ -126,3 +155,29 @@ def test_gpipe_skips_bubble_ticks(stages, micro):
     gpipe_scan(body, torch.from_numpy(x), tw, mesh=make_mesh(stages, CPU8), microbatches=micro)
     assert len(calls) == 8 * micro  # JAX's schedule: 8 / stages * stages * (micro + stages - 1)
     assert set(calls) == {16 // micro}
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_gpipe_gradient_reaches_the_callers_modules(device):
+    torch.manual_seed(0)
+    layers = torch.nn.ModuleList(torch.nn.Linear(8, 8) for _ in range(4)).to(device)
+    x = torch.randn(8, 8).requires_grad_()
+
+    def run():
+        return gpipe_scan(lambda h, layer: (torch.tanh(layer(h)), None), x, layers,
+                          mesh=make_mesh(2, ["cpu"] * 2), microbatches=4)  # fmt: skip
+
+    if device == "meta":  # each stage would run a copy on the CPU
+        with pytest.raises(ValueError, match="autograd cannot reach"):
+            run()
+        return
+    run().square().sum().backward()
+    want = [torch.autograd.grad(_chain(layers, x.detach()).square().sum(), lin.weight)[0] for lin in layers]
+    for lin, w in zip(layers, want):
+        torch.testing.assert_close(lin.weight.grad, w, rtol=1e-5, atol=1e-6)
+
+
+def _chain(layers, h):
+    for layer in layers:
+        h = torch.tanh(layer(h))
+    return h
