@@ -62,7 +62,10 @@ cosine *distance* ``1 - cos`` like a chroma cosine collection
 - ``query`` is timed as ``index.query`` (the request, coalescer queueing
   included) and each engine call as ``index.dispatch``, inside
   ``GATE.priority()`` up to its results on the host: bulk streams park
-  at their next checkpoint meanwhile (runtime/scheduler.py).
+  at their next checkpoint meanwhile (runtime/scheduler.py). Inside it,
+  ``index.fetch`` times a device engine's copy of its results to the
+  host (the wait for every kernel queued before it on the stream); after
+  it, ``index.rows`` times turning indices into id and metadata lists.
 - Coalescing (runtime/coalesce.py): with ``coalesce=True``, or
   IMATCH_COALESCE=1 on a ``cuda`` store, concurrent single-row queries
   share one engine call. Off by default, as in JAX.
@@ -937,7 +940,8 @@ class VectorStore:
             scores, idx = topk(q, state, k=k, n_probe=n_probe, rescore_margin=self.margin)
         else:
             scores, idx = tilemax_topk(q, state, k=k)
-        return scores.cpu().numpy(), idx.cpu().numpy()
+        with METRICS.timer("index.fetch"):
+            return scores.cpu().numpy(), idx.cpu().numpy()
 
     @staticmethod
     def _k_bucket(k: int) -> int:
@@ -1089,19 +1093,20 @@ class VectorStore:
         finally:
             self._release_snapshot(dc)
         scores, idx = scores[:, :k], idx[:, :k]
-        for qi in range(qn):
-            row_ids, row_d, row_m, row_doc = [], [], [], []
-            for s, i in zip(scores[qi], idx[qi]):
-                if i < 0:
-                    continue
-                row_ids.append(ids_l[i])
-                row_d.append(float(1.0 - s))  # chroma cosine distance
-                row_m.append(meta_l[i])
-                row_doc.append(docs_l[i])
-            out["ids"].append(row_ids)
-            out["distances"].append(row_d)
-            out["metadatas"].append(row_m)
-            out["documents"].append(row_doc)
+        with METRICS.timer("index.rows"):
+            for qi in range(qn):
+                row_ids, row_d, row_m, row_doc = [], [], [], []
+                for s, i in zip(scores[qi], idx[qi]):
+                    if i < 0:
+                        continue
+                    row_ids.append(ids_l[i])
+                    row_d.append(float(1.0 - s))  # chroma cosine distance
+                    row_m.append(meta_l[i])
+                    row_doc.append(docs_l[i])
+                out["ids"].append(row_ids)
+                out["distances"].append(row_d)
+                out["metadatas"].append(row_m)
+                out["documents"].append(row_doc)
         return self._strip_include(out, include)
 
     @staticmethod

@@ -13,7 +13,8 @@ parks at ``GATE.checkpoint()`` between chunks while a search is in
 flight), query image batches chunked by a source-pixel budget
 (IMATCH_QUERY_PIXEL_BUDGET), and the JAX package's METRICS names
 (``images_embedded``, ``embed.image``, ``embed.text``,
-``embed.text_cache_hit``, ``ingest.fused``).
+``embed.text_cache_hit``, ``ingest.fused``) with two timers of its own:
+``embed.wait``, a tower call's wait for the lock, and ``embed.tokenize``.
 
 Weights, in order of precedence: ``params=`` (a numpy param tree in the
 JAX layout, e.g. ``init_params(jax.random.key(0))`` carried across, which
@@ -239,13 +240,20 @@ class ClipEmbedder:
         return gather(outs, self.device, group=group)
 
     def _run_tower(self, fn, rows: torch.Tensor, metric: str) -> torch.Tensor:
+        """The tower over ``rows`` under the embedder's lock: the wait for
+        the lock is ``embed.wait``, the enqueue under it ``metric``."""
         outs = []
-        with self._lock, METRICS.timer(metric):
-            for s, b, bp in self._chunks(rows.shape[0]):
-                part = rows[s : s + b]
-                if bp > b:
-                    part = torch.cat([part, part[-1:].expand(bp - b, *part.shape[1:])])
-                outs.append(self._sharded(fn, part)[:b])
+        with METRICS.timer("embed.wait"):
+            self._lock.acquire()
+        try:
+            with METRICS.timer(metric):
+                for s, b, bp in self._chunks(rows.shape[0]):
+                    part = rows[s : s + b]
+                    if bp > b:
+                        part = torch.cat([part, part[-1:].expand(bp - b, *part.shape[1:])])
+                    outs.append(self._sharded(fn, part)[:b])
+        finally:
+            self._lock.release()
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def _embed_pixels(self, pixels: torch.Tensor) -> torch.Tensor:
@@ -258,15 +266,16 @@ class ClipEmbedder:
         )
 
     def _tokenize(self, texts: Sequence[str]) -> np.ndarray:
-        tokens = np.asarray(
-            self.tokenizer.encode_batch(texts, max_length=self.cfg.text.max_positions)
-        )
-        if self._fold_vocab:
-            is_eos = tokens == self.tokenizer.eos_id
-            tokens = np.where(
-                is_eos, self._model_eos, tokens % (self.cfg.text.vocab_size - 1)
+        with METRICS.timer("embed.tokenize"):
+            tokens = np.asarray(
+                self.tokenizer.encode_batch(texts, max_length=self.cfg.text.max_positions)
             )
-        return tokens
+            if self._fold_vocab:
+                is_eos = tokens == self.tokenizer.eos_id
+                tokens = np.where(
+                    is_eos, self._model_eos, tokens % (self.cfg.text.vocab_size - 1)
+                )
+            return tokens
 
     # -- device-resident embeddings ------------------------------------------
 

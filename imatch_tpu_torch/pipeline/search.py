@@ -6,7 +6,8 @@ mapping ``1 - distance/2``; ``limit <= 0`` caps at 1000. The query
 embedding stays on the device from the tower into the store's engine, so
 a search pays one device-to-host copy (the top-k result). The batched
 forms run one tower call for all the queries (chunked as the embedder
-chunks) and one store query of Q rows.
+chunks) and one store query of Q rows. Building the result dicts from
+the store's rows is the ``search.rows`` timer.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from PIL import Image
 
 from imatch_tpu_torch.pipeline.state import AppState
+from imatch_tpu_torch.utils.metrics import METRICS
 
 logger = logging.getLogger("imatch.search")
 
@@ -40,7 +42,8 @@ def search_similar(state: AppState, embedding, limit: int = 10) -> List[dict]:
     )
     if not res["ids"] or not res["ids"][0]:
         return []
-    return _result_row(res, 0)
+    with METRICS.timer("search.rows"):
+        return _result_row(res, 0)
 
 
 def _result_row(res: dict, qi: int) -> List[dict]:
@@ -80,7 +83,8 @@ def _query_rows(state: AppState, embs, n: int, limit: int) -> List[List[dict]]:
         n_results=ALL_LIMIT if limit <= 0 else limit,
         include=["metadatas", "distances"],
     )
-    return [_result_row(res, qi) for qi in range(n)]
+    with METRICS.timer("search.rows"):
+        return [_result_row(res, qi) for qi in range(n)]
 
 
 def search_by_image(state: AppState, image: Image.Image, limit: int = 10) -> List[dict]:

@@ -5,6 +5,12 @@ JAX package). Every pipeline stage records into the process-wide
 ``METRICS``: counters, and duration series with a bounded ring of recent
 samples for percentiles. Served by ``GET /api/metrics``. An observation
 costs one lock and a float append.
+
+``timer`` is also the port's only span: while a torch.profiler session
+records (``/api/profile/start``, or any other), it opens
+``record_function`` of the same name around the block, so the span lies
+in the Chrome trace on the calling thread, on the clock of the kernels
+and copies. With no session it reads one flag and nothing more.
 """
 
 from __future__ import annotations
@@ -14,6 +20,10 @@ import contextlib
 import threading
 import time
 from typing import Dict
+
+from torch.autograd import profiler as _profiler
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 class _Series:
@@ -71,11 +81,15 @@ class Metrics:
 
     @contextlib.contextmanager
     def timer(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.observe(name, time.perf_counter() - t0)
+        """Observe the block's wall time into ``name``; while a profiler
+        session records, the block is also its ``record_function`` span."""
+        span = _profiler.record_function(name) if _profiler._is_profiler_enabled else _NO_SPAN
+        with span:
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.observe(name, time.perf_counter() - t0)
 
     def snapshot(self) -> Dict:
         with self._lock:

@@ -7,9 +7,10 @@ CPU (ports of tests/test_api.py:312-416):
   ``/api/search/multimodal`` with the extended text;
 - ``/upload-samples`` over a directory the test writes gives JAX's
   per-file results and counts, an undecodable file reported on its own;
-- ``/api/metrics`` has JAX's keys after the same requests;
+- ``/api/metrics`` has JAX's keys after the same requests, and beside
+  them exactly the port's own search-path spans;
 - ``/api/profile/start`` twice and a stop without a start are 409s, and a
-  trace is written;
+  trace is written, the program's spans in it;
 - ``GET /`` and ``GET /manage`` are byte-identical to JAX's;
 - the two apps have the same route table, and no route answers 501;
 - the warmup (IMATCH_WARMUP, on by default) runs in the background and
@@ -210,6 +211,10 @@ def _drive(client, folder):
     return client.get("/api/metrics").json()
 
 
+# timers the port adds on its search path (utils/metrics.py: spans)
+PORT_SPANS = {"embed.wait", "embed.tokenize", "index.fetch", "index.rows", "search.rows"}
+
+
 def test_metrics_have_jax_keys(apps):
     ja, pa = apps
     folder = [("files", (f"f{i}.png", _png(20 + i, 32, 32), "image/png")) for i in range(9)]
@@ -219,7 +224,9 @@ def test_metrics_have_jax_keys(apps):
     got = _drive(pa, folder)
     assert set(got) == set(want) == {"uptime_s", "counters", "timings", "index_count", "index"}
     assert set(got["counters"]) == set(want["counters"])
-    assert set(got["timings"]) == set(want["timings"])
+    # every JAX timer, and beside them exactly the port's own spans
+    assert set(want["timings"]) <= set(got["timings"])
+    assert set(got["timings"]) - set(want["timings"]) == PORT_SPANS
     for name in ("index.query", "index.dispatch", "embed.text", "embed.image", "ingest.fused", "ingest.add"):
         assert got["timings"][name]["count"] == want["timings"][name]["count"], name
     assert got["counters"] == want["counters"]
@@ -245,6 +252,8 @@ def test_profile_start_stop_409(apps, tmp_path):
     with open(os.path.join(d, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"embed.wait", "embed.tokenize", "embed.text", "index.query"} <= spans
 
 
 def test_ui_pages_byte_identical(apps):
