@@ -2785,7 +2785,8 @@ def plain_attention():
 
 @contextlib.contextmanager
 def call_counts(**modules):
-    """Forward calls of each named module, counted for a ``with`` block."""
+    """Forward calls of each named module, counted for a ``with`` block
+    (``clip_text``'s as text-tower calls, ``text_graph_calls``)."""
     counts = dict.fromkeys(modules, 0)
     handles = []
     for name, mod in modules.items():
@@ -2795,10 +2796,43 @@ def call_counts(**modules):
 
         handles.append(mod.register_forward_pre_hook(hook))
     try:
-        yield counts
+        if "clip_text" in modules:
+            with text_graph_calls(counts, lambda tower: tower is modules["clip_text"]):
+                yield counts
+        else:
+            yield counts
     finally:
         for h in handles:
             h.remove()
+
+
+@contextlib.contextmanager
+def text_graph_calls(counts, counted):
+    """Text-tower calls through the embedder's CUDA graph, for a ``with``
+    block, into ``counts["clip_text"]`` beside a forward hook's count: a
+    replay runs the tower with no forward call, one call; a capture makes
+    two forward calls (its eager run and the capture) that serve no call,
+    minus two. ``counted(tower)``: whether the tower is the one counted."""
+    from imatch_tpu_torch.pipeline.embedder import ClipEmbedder
+
+    replay, capture = ClipEmbedder._replay_text, ClipEmbedder._capture_text
+
+    def counted_replay(self, model, ids):
+        if counted(model.text):
+            counts["clip_text"] += 1
+        return replay(self, model, ids)
+
+    def counted_capture(self, model, shape):
+        graph = capture(self, model, shape)
+        if counted(model.text):
+            counts["clip_text"] -= 2
+        return graph
+
+    ClipEmbedder._replay_text, ClipEmbedder._capture_text = counted_replay, counted_capture
+    try:
+        yield
+    finally:
+        ClipEmbedder._replay_text, ClipEmbedder._capture_text = replay, capture
 
 
 def _timed(fn, device, iters: int = 3):
@@ -4233,7 +4267,8 @@ def decoder_check(device) -> tuple:
 @contextlib.contextmanager
 def counted_tower_classes(vision_cls, text_cls):
     """Forward calls of every module of the two tower classes, counted for a
-    ``with`` block (a global hook: the scripts build their own embedders)."""
+    ``with`` block (a global hook: the scripts build their own embedders;
+    the text tower's as text-tower calls, ``text_graph_calls``)."""
     import torch
 
     counts = {"clip_vision": 0, "clip_text": 0}
@@ -4246,7 +4281,8 @@ def counted_tower_classes(vision_cls, text_cls):
 
     handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
     try:
-        yield counts
+        with text_graph_calls(counts, lambda tower: type(tower) is text_cls):
+            yield counts
     finally:
         handle.remove()
 

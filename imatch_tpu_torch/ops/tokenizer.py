@@ -24,17 +24,16 @@ Vocabulary sources:
   (256 symbols x {mid-word, end-of-word} + specials, no merges) so the
   whole stack runs end-to-end with random-init models offline.
 
-Tokenization is a cold path here (one short query string per search;
-ingest text is filenames) — pure Python with an LRU cache over words is
-fast enough and keeps the implementation auditable.
+Pure Python with an LRU cache over words, which keeps the implementation
+auditable. A batched search tokenizes its texts on the serving threads, so
+neither the cache nor the regex matches release the GIL or wait on a lock
+(``_KEEP_GIL``).
 """
 
 from __future__ import annotations
 
 import functools
 import json
-import threading
-from collections import OrderedDict
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -122,6 +121,14 @@ else:  # pragma: no cover - ASCII-only approximation
         _re.IGNORECASE,
     )
 
+# `regex` releases the GIL around every match unless told not to. The
+# matches here are short (one text, one word), and with several threads
+# tokenizing each release hands the GIL to another thread, as a lock
+# around the word cache did: the two together left 8 threads tokenizing
+# batches of captions a fifteenth of one thread's rate. The matches keep
+# the GIL.
+_KEEP_GIL = {"concurrent": False} if _HAS_REGEX else {}
+
 
 class CLIPTokenizer:
     """CLIP BPE tokenizer with batched fixed-length encoding."""
@@ -144,12 +151,11 @@ class CLIPTokenizer:
         self.eos_id = self.vocab[eos_token]
         # bounded LRU: a long-lived server seeing unbounded unique words
         # (filenames, adversarial queries) must not grow memory forever.
-        # Lock-guarded: request handlers tokenize from the serving
-        # thread pool, and an unsynchronized move_to_end can KeyError
-        # against a concurrent eviction.
-        self._bpe_cache: "OrderedDict[str, str]" = OrderedDict()
-        self._bpe_cache_cap = 32768
-        self._bpe_lock = threading.Lock()
+        # functools' cache stays coherent across the serving threads
+        # without a lock of its own (see _KEEP_GIL).
+        self.bpe = functools.lru_cache(maxsize=self.BPE_CACHE_WORDS)(self._bpe)
+
+    BPE_CACHE_WORDS = 32768
 
     # -- constructors -------------------------------------------------------
 
@@ -188,21 +194,12 @@ class CLIPTokenizer:
 
     # -- core BPE -----------------------------------------------------------
 
-    def bpe(self, token: str) -> str:
-        with self._bpe_lock:
-            cached = self._bpe_cache.get(token)
-            if cached is not None:
-                self._bpe_cache.move_to_end(token)
-                return cached
+    def _bpe(self, token: str) -> str:
+        """One word's merges (``bpe``, the cached form, is what callers use)."""
         word = bpe_merge(
             tuple(token[:-1]) + (token[-1] + "</w>",), self.bpe_ranks
         )
-        out = " ".join(word)
-        with self._bpe_lock:
-            self._bpe_cache[token] = out
-            if len(self._bpe_cache) > self._bpe_cache_cap:
-                self._bpe_cache.popitem(last=False)
-        return out
+        return " ".join(word)
 
     def _tokenize_word(self, token: str) -> List[int]:
         token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
@@ -214,9 +211,9 @@ class CLIPTokenizer:
         # ftfy / the fast normalizer), so decomposed input (e.g. 'café'
         # pasted from macOS as e + U+0301) must map to the same ids.
         text = unicodedata.normalize("NFC", text)
-        text = _WHITESPACE.sub(" ", text.strip()).lower()
+        text = _WHITESPACE.sub(" ", text.strip(), **_KEEP_GIL).lower()
         ids: List[int] = []
-        for tok in _SPLIT.findall(text):
+        for tok in _SPLIT.findall(text, **_KEEP_GIL):
             if tok == self.bos_token or tok == self.eos_token:
                 # HF treats the special literals as added tokens (one
                 # id), not text to byte-encode through BPE

@@ -41,7 +41,7 @@ class GPT2Tokenizer:
         self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
         self.eos_id = self.vocab[eos_token]
         self.bos_id = self.vocab[bos_token] if bos_token else self.eos_id
-        # bounded, lock-guarded LRU like CLIPTokenizer's: filter queries
+        # bounded, lock-guarded LRU: filter queries
         # and caption prompts are user-supplied, so an unbounded dict
         # grows server memory forever, and the serving thread pool
         # tokenizes concurrently

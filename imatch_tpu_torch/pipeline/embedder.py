@@ -16,6 +16,14 @@ flight), query image batches chunked by a source-pixel budget
 ``embed.text_cache_hit``, ``ingest.fused``) with two timers of its own:
 ``embed.wait``, a tower call's wait for the lock, and ``embed.tokenize``.
 
+On one CUDA device holding the whole model (no data shards, no model
+shards) the text tower runs as a CUDA graph, one a padded row bucket
+(rows, ``max_positions``), captured the first time the bucket is seen and
+replayed under the lock: the same kernels (K2 among them) in the same
+order, one launch in place of about 20 a layer. Two counters of its own:
+``embed.text_graph_capture`` and ``embed.text_graph_replay``. Every other
+placement, and the image tower, runs eagerly.
+
 Weights, in order of precedence: ``params=`` (a numpy param tree in the
 JAX layout, e.g. ``init_params(jax.random.key(0))`` carried across, which
 torch's RNG cannot reproduce), a converted HF checkpoint
@@ -50,7 +58,8 @@ import os
 import threading
 import time
 from collections import OrderedDict
-from typing import Dict, Optional, Sequence
+from functools import partial
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,6 +70,7 @@ from imatch_tpu_torch.models.clip.bridge import params_from_numpy
 from imatch_tpu_torch.models.clip.configs import CLIPConfig, get_config
 from imatch_tpu_torch.models.clip.model import encode_image, encode_text, init_random
 from imatch_tpu_torch.ops.collectives import gather
+from imatch_tpu_torch.ops.kernels.flash_attention import flash_mha
 from imatch_tpu_torch.ops.phash import (
     DEVICE_BUCKET_MIN,
     bits_to_hex,
@@ -79,6 +89,17 @@ from imatch_tpu_torch.utils.metrics import METRICS
 logger = logging.getLogger("imatch.embedder")
 
 SEED = 0  # the random init's, so embeddings are stable across restarts
+
+
+class _TextGraph(NamedTuple):
+    """One row bucket's captured text tower: its static ids and output,
+    and the K2 launches (all, fp32) one replay makes."""
+
+    ids: torch.Tensor
+    graph: "torch.cuda.CUDAGraph"
+    out: torch.Tensor
+    k2: int
+    k2_fp32: int
 
 
 class ClipEmbedder:
@@ -161,6 +182,15 @@ class ClipEmbedder:
         # (default 1024; 0 disables).
         self._text_cache_cap = int(os.environ.get("IMATCH_TEXT_CACHE", "1024"))
         self._text_cache: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+        # The text tower's CUDA graphs by (padded rows, positions), under
+        # the lock, with the model and the text tower's parameters they
+        # read and those parameters' addresses at capture (_text_graph).
+        self._text_graphs: Dict[tuple, _TextGraph] = {}
+        self._graph_model = None
+        self._graph_params: list = []
+        self._graph_ptrs: list = []
+        self._graph_pool = None
+        self._graph_stream = None
         # Pool at the TOKENIZER's eos id. When the tokenizer's vocab is
         # larger than the model's (byte fallback vs a small config), ids
         # fold into [0, vocab-2] with the model's top id reserved for eos:
@@ -261,9 +291,84 @@ class ClipEmbedder:
 
     def _embed_tokens(self, tokens: np.ndarray) -> torch.Tensor:
         ids = torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
-        return self._run_tower(
-            lambda model, t: encode_text(model, t, eos_token_id=self._model_eos), ids, "embed.text"
+        if self._text_graph_eligible():
+            fn = self._replay_text
+        else:
+            fn = partial(encode_text, eos_token_id=self._model_eos)
+        return self._run_tower(fn, ids, "embed.text")
+
+    def _text_graph_eligible(self) -> bool:
+        """Whether the text tower replays as a CUDA graph: one CUDA device
+        holding the whole model (no data shards, no model shards, no
+        model row across processes)."""
+        m = self.model
+        return (
+            self.device.type == "cuda"
+            and len(self.mesh) == 1
+            and len(m.peers) == 0
+            and getattr(m, "row_group", None) is None
         )
+
+    def _replay_text(self, model, ids: torch.Tensor) -> torch.Tensor:
+        """``encode_text`` over ``ids`` as its bucket's graph, under the
+        lock: the ids copied into the graph's input, one replay, the
+        output cloned. The clone is needed: once the lock is released the
+        next replay rewrites the graph's output, while this call's
+        consumers are still queued behind it on the stream."""
+        g = self._text_graph(model, tuple(ids.shape))
+        g.ids.copy_(ids)
+        g.graph.replay()
+        METRICS.inc("embed.text_graph_replay")
+        flash_mha.launches += g.k2
+        flash_mha.fp32_launches += g.k2_fp32
+        return g.out.clone()
+
+    def _text_graph(self, model, shape: tuple) -> _TextGraph:
+        """The graph for ``shape``, captured on first use. A graph reads
+        the weights at the addresses it captured: weights copied in place
+        keep it valid; a new model, or a text-tower parameter given new
+        storage (``p.data = ...``, as ``cast_compute`` does), drops every
+        graph, checked at each call by the parameters' addresses."""
+        if model is not self._graph_model or [p.data_ptr() for p in self._graph_params] != self._graph_ptrs:
+            self._text_graphs.clear()
+            self._graph_pool = None  # the dropped graphs' memory goes with them
+            self._graph_model = model
+            self._graph_params = list(model.text.parameters())
+            self._graph_ptrs = [p.data_ptr() for p in self._graph_params]
+        g = self._text_graphs.get(shape)
+        if g is None:
+            g = self._text_graphs[shape] = self._capture_text(model, shape)
+        return g
+
+    def _capture_text(self, model, shape: tuple) -> _TextGraph:
+        """Capture ``encode_text`` at ``shape`` (rows, positions) into the
+        graphs' shared pool, on a side stream: one eager run first, which
+        does the lazy set-up a capture may not (cuBLAS's workspace, K2's
+        shared-memory grant), then the capture, in ``thread_local`` mode
+        since other workers may synchronize or allocate meanwhile. Neither
+        run counts in K2's launch counters: each replay adds the graph's."""
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        start = flash_mha.launches, flash_mha.fp32_launches
+        ids = torch.full(shape, self._model_eos, dtype=torch.int64, device=self.device)
+        main, side = torch.cuda.current_stream(self.device), self._graph_stream
+        side.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            encode_text(model, ids, eos_token_id=self._model_eos)
+            warm = flash_mha.launches, flash_mha.fp32_launches
+            graph.capture_begin(pool=self._graph_pool, capture_error_mode="thread_local")
+            try:
+                out = encode_text(model, ids, eos_token_id=self._model_eos)
+            finally:
+                graph.capture_end()
+        main.wait_stream(side)
+        k2, k2_fp32 = flash_mha.launches - warm[0], flash_mha.fp32_launches - warm[1]
+        flash_mha.launches, flash_mha.fp32_launches = start
+        METRICS.inc("embed.text_graph_capture")
+        return _TextGraph(ids, graph, out, k2, k2_fp32)
 
     def _tokenize(self, texts: Sequence[str]) -> np.ndarray:
         with METRICS.timer("embed.tokenize"):
