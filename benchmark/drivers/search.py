@@ -3,15 +3,15 @@
 Requests arrive on a fixed schedule at the mix's ``rate`` (a Poisson
 process's gaps, the same set every seed in a seeded order) whatever the
 system's state, and ``workers`` threads (the server's IMATCH_WORKERS)
-serve them through ``pipeline.search.search_by_text_batch(state, texts,
-limit)``, the /api/search/batch route's call, against a store of
-``store_rows`` unit rows made from the seed. Each request is
-``per_request`` distinct texts whose word counts are the same multiset
-in every request (a Pareto tail of index ``alpha`` from ``min_words``,
-cut at ``max_words``), cut by the tokenizer at the text tower's context.
-A request's latency runs from its due time to its results in the
-caller's hands; one that fails, or has not answered a minute after the
-window, counts as failed.
+serve them (``lib/openloop.py``) through
+``pipeline.search.search_by_text_batch(state, texts, limit)``, the
+/api/search/batch route's call, against a store of ``store_rows`` unit
+rows made from the seed. Each request is ``per_request`` distinct texts
+whose word counts are the same multiset in every request (a Pareto tail
+of index ``alpha`` from ``min_words``, cut at ``max_words``), cut by the
+tokenizer at the text tower's context. A request's latency runs from its
+due time to its results in the caller's hands; one that fails, or has
+not answered a minute after the window, counts as failed.
 
 After the window, ``check_requests`` requests drawn from the seed are
 held to the references: the query embeddings the timed path computed
@@ -21,18 +21,12 @@ scores against a brute force over the rows.
 
 from __future__ import annotations
 
-import gc
-import queue
-import time
 import threading
 
 import numpy as np
 import torch
 
-from ..lib import cell, data, program
-from ..lib.cell import now
-
-GRACE_S = 60.0
+from ..lib import cell, data, openloop, program
 
 
 def _row_ids(n: int):
@@ -94,89 +88,18 @@ def run(ctx: cell.Context) -> cell.Context:
     cell.sync(dev)
     ctx.mark("warm_requests")
 
-    records = [dict(due=float(d), start=None, done=None, ok=False, err=None) for d in due]
     results = {}
-    work: "queue.Queue" = queue.Queue()
     check_set = set(check)
 
-    def worker():
-        while True:
-            item = work.get()
-            if item is None:
-                return
-            tls.idx = item if item in check_set else None
-            rec = records[item]
-            rec["start"] = now() - t0
-            try:
-                with torch.autograd.profiler.record_function("bench.search.request"):
-                    res = search_by_text_batch(state, texts[item], limit=limit)
-                rec["ok"] = len(res) == q_per and all(len(r) == min(limit, n_rows) for r in res)
-                if item in check_set:
-                    results[item] = [[(m["id"], m["similarity_score"]) for m in r] for r in res]
-            except Exception as e:  # a failed request is counted, not raised
-                rec["err"] = repr(e)
-            rec["done"] = now() - t0
+    def handle(item):
+        tls.idx = item if item in check_set else None
+        res = search_by_text_batch(state, texts[item], limit=limit)
+        if item in check_set:
+            results[item] = [[(m["id"], m["similarity_score"]) for m in r] for r in res]
+        return len(res) == q_per and all(len(r) == min(limit, n_rows) for r in res)
 
-    threads = [threading.Thread(target=worker, daemon=True, name=f"bench-worker-{k}") for k in range(mix["workers"])]
-    for t in threads:
-        t.start()
-    metrics = program.metrics()
-    tracer = None
-    if ctx.trace:
-        from ..lib.trace import Tracer
-
-        tracer = Tracer()
-    trace_at = (mix["trace_from"] * ctx.seconds, mix["trace_from"] * ctx.seconds + mix["trace_seconds"])
-    late = []
-    pauses = []
-
-    def on_gc(phase, info):
-        if info["generation"] == 2:
-            pauses.append(now()) if phase == "start" else pauses.append(now() - pauses.pop())
-
-    gc.callbacks.append(on_gc)
-    t0 = ctx.start_window()
-    metrics.reset()
-    for i, d in enumerate(due):
-        while True:
-            t = now() - t0
-            if tracer is not None and not tracer.started and ctx.stretch is None and t >= trace_at[0]:
-                tracer.start()
-                ctx.stretch = (now(), None)
-            elif tracer is not None and tracer.started and ctx.stretch[1] is None and t >= trace_at[1]:
-                tracer.stop()
-                ctx.stretch = (ctx.stretch[0], now())
-            if t >= d:
-                break
-            time.sleep(min(d - t, 0.05))
-        late.append(now() - t0 - d)
-        work.put(i)
-    while now() - t0 < ctx.seconds:
-        time.sleep(0.001)
-    ctx.window_s = ctx.seconds
-    for _ in threads:
-        work.put(None)
-    for t in threads:
-        t.join(timeout=max(0.0, ctx.seconds + GRACE_S - (now() - t0)))
-    if tracer is not None and tracer.started and ctx.stretch[1] is None:
-        tracer.stop()
-        ctx.stretch = (ctx.stretch[0], now())
-    wait_end = now() - t0
-    hung = any(t.is_alive() for t in threads)
-    gc.callbacks.remove(on_gc)
-    ctx.notes["gc_full_collections"] = float(len(pauses))
-    ctx.notes["gc_full_s"] = float(sum(pauses))
-    ctx.program_metrics = metrics.snapshot()
-    ctx.memory_peak_bytes = cell.peak_memory(dev)
-    if tracer is not None:
-        ctx.trace_summary = tracer.read()
-    ctx.requests = records
+    hung = openloop.serve(ctx, due, handle, "bench.search.request", mix["workers"], program.metrics())
     ctx.texts = texts
-    ctx.attempted = n_req
-    ctx.failed = sum(1 for r in records if not r["ok"])
-    ctx.notes["late_p95_ms"] = float(np.percentile(late, 95)) * 1e3
-    ctx.notes["late_max_ms"] = float(np.max(late)) * 1e3
-    ctx.notes["wait_end_s"] = wait_end
     ctx.store_rows = st.count()
     emb_p = {i: captured[i].float().cpu().numpy() for i in check if i in captured}
     emb.embed_texts_device = served_embed
@@ -204,6 +127,23 @@ def _reference(ctx, texts, check, int8: bool):
     return out
 
 
+def store_gaps(rows, query, res, limit):
+    """One served result row ``res`` ([(id, similarity)], the top
+    ``limit``) against a brute force over ``rows`` for the (1, D)
+    ``query``: the largest amount by which a served result's score lies
+    below the brute force's at its rank, and the largest gap of a served
+    similarity from the brute force's for the same row."""
+    from ..reference import topk as ref_topk
+
+    idx = torch.tensor([int(r[0][4:], 16) for r in res], device=rows.device)
+    sims = torch.tensor([float(r[1]) for r in res], device=rows.device, dtype=torch.float64)
+    best, _ = ref_topk.topk(rows, query, limit)
+    got = ref_topk.scores_of(rows, query, idx[None])[0]
+    rank = float((best[0] - torch.sort(got, descending=True).values).max())
+    score = float((sims - (1.0 + got.double()) / 2.0).abs().max())
+    return rank, score
+
+
 def _check(ctx, texts, check, emb_p, results):
     """For each request drawn, two stages, each against the references.
 
@@ -228,8 +168,6 @@ def _check(ctx, texts, check, emb_p, results):
 
     Also printed: the same gaps of the results against the reference's
     own queries (what the user sees end to end)."""
-    from ..reference import topk as ref_topk
-
     dev, limit = ctx.device, ctx.mix["limit"]
     ref = _reference(ctx, texts, check, int8=False)
     rows = data.make_rows(ctx.mix["store_rows"], ctx.cfg["projection_dim"], ctx.seed, dev)
@@ -247,17 +185,10 @@ def _check(ctx, texts, check, emb_p, results):
             if len(res) < limit:
                 missing += 1
                 continue
-            idx = torch.tensor([int(r[0][4:], 16) for r in res], device=dev)
-            sims = torch.tensor([float(r[1]) for r in res], device=dev, dtype=torch.float64)
-            for query, kind in ((served[q : q + 1], "store"), (ref[i][q : q + 1], "e2e")):
-                best, _ = ref_topk.topk(rows, query, limit)
-                got = ref_topk.scores_of(rows, query, idx[None])[0]
-                rank = float((best[0] - torch.sort(got, descending=True).values).max())
-                score = float((sims - (1.0 + got.double()) / 2.0).abs().max())
-                if kind == "store":
-                    store_rank, store_score = max(store_rank, rank), max(store_score, score)
-                else:
-                    e2e_rank, e2e_score = max(e2e_rank, rank), max(e2e_score, score)
+            (rank, score), (rank2, score2) = (store_gaps(rows, query, res, limit)
+                                              for query in (served[q : q + 1], ref[i][q : q + 1]))
+            store_rank, store_score = max(store_rank, rank), max(store_score, score)
+            e2e_rank, e2e_score = max(e2e_rank, rank2), max(e2e_score, score2)
     bias = float(torch.linalg.vector_norm(torch.cat(diffs).mean(0))) if diffs else 0.0
     if gaps:
         ctx.notes["emb_gap_median"] = float(np.median(gaps))

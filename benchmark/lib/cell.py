@@ -16,8 +16,11 @@ class Context:
     measured fields; ``metrics/<name>.py`` readers read them."""
 
     def __init__(self, workload: dict, cfg: dict, mix: dict, seed: int, seconds: float, trace: bool,
-                 device, t_proc: float, control: bool = False, rate: Optional[float] = None):
+                 device, t_proc: float, control: bool = False, rate: Optional[float] = None, bench_dir=None):
+        from . import program
+
         self.workload, self.cfg, self.mix = workload, cfg, mix
+        self.bench_dir = program.BENCH_DIR if bench_dir is None else bench_dir  # where captioners/ lies
         self.seed, self.seconds, self.trace = int(seed), float(seconds), bool(trace)
         self.device = torch.device(device)
         self.t_proc, self.control = t_proc, control
@@ -25,7 +28,8 @@ class Context:
         self.setup_s: Optional[float] = None
         self.window_s: Optional[float] = None
         self.t0: Optional[float] = None  # host perf_counter at the window's start
-        self.texts: list = []  # search: each request's texts
+        self.texts: list = []  # search: each request's texts (caption search: the text its tower embedded)
+        self.captions: dict = {}  # caption search: each request's generated-token count
         self.attempted = 0
         self.failed = 0
         self.requests: list = []  # search: one record a request due in the window

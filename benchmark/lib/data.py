@@ -78,10 +78,16 @@ def make_weights(cfg: dict, seed: int, device, dtype: torch.dtype) -> Dict[str, 
     """Every weight of the two towers from the seed: the LayerNorms in
     fp32 (as they are served), the rest in ``dtype``, each group drawn by
     one call on ``device`` and cut into leaves."""
-    leaves = list(weight_leaves(cfg))
+    return draw_leaves(list(weight_leaves(cfg)), seed, "weights", device, dtype)
+
+
+def draw_leaves(leaves, seed: int, tag: str, device, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """(name, shape, kind) leaves (``weight_leaves``' kinds) from the seed:
+    the LayerNorms in fp32, the rest in ``dtype``, each group drawn by one
+    call of the ``tag`` generator on ``device`` and cut into leaves."""
     is_ln = [isinstance(k, str) and k.startswith("ln_") for _, _, k in leaves]
     sizes = [math.prod(s) for _, s, _ in leaves]
-    gen = generator(seed, "weights", device)
+    gen = generator(seed, tag, device)
     flat = {
         False: torch.empty(sum(n for n, ln in zip(sizes, is_ln) if not ln), dtype=dtype, device=device),
         True: torch.empty(sum(n for n, ln in zip(sizes, is_ln) if ln), dtype=torch.float32, device=device),
@@ -147,6 +153,18 @@ def make_texts(n_requests: int, per_request: int, lo: int, hi: int, alpha: float
     return out
 
 
+def make_text_stream(n: int, lo: int, hi: int, alpha: float, seed: int, tag: str = "text-stream") -> List[str]:
+    """``n`` texts, one a request: their word counts are the window's
+    ``word_counts(n, ...)`` (the same multiset every seed) in a seeded
+    order, their words drawn from the seed."""
+    vocab = np.array(vocabulary())
+    rng = np.random.default_rng(sub_seed(seed, tag))
+    counts = rng.permutation(word_counts(n, lo, hi, alpha))
+    words = vocab[rng.integers(0, len(vocab), int(counts.sum()))]
+    bounds = np.concatenate([[0], np.cumsum(counts)])
+    return [" ".join(words[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
 # -- store rows and schedules ---------------------------------------------------
 
 
@@ -186,4 +204,27 @@ def arrivals(rate: float, seconds: float, seed: int) -> np.ndarray:
     gaps = np.random.default_rng(sub_seed(seed, "arrivals")).permutation(gaps)
     times = np.cumsum(gaps)
     return times * (seconds * (1.0 - 0.5 / n) / times[-1])
+
+
+# -- frames ----------------------------------------------------------------------
+
+
+def make_frames(sizes: Sequence[Sequence[int]], n: int, seed: int, device, tag: str = "frames") -> List[np.ndarray]:
+    """``n`` (H, W, 3) uint8 RGB frames whose (W, H) geometries cycle
+    through ``sizes`` in a seeded order (the same multiset every seed).
+    Each is a seeded 1/32-scale colour field, bilinearly upsampled, plus
+    pixel noise: structure that survives the towers' downsampling, so
+    that two frames differ at the models' resolution. Drawn on
+    ``device``, returned on the host."""
+    order = np.random.default_rng(sub_seed(seed, f"{tag}-sizes")).permutation(
+        [tuple(sizes[i % len(sizes)]) for i in range(n)])
+    gen = generator(seed, tag, device)
+    out = []
+    for w, h in order:
+        coarse = torch.rand((1, 3, -(-int(h) // 32), -(-int(w) // 32)), generator=gen, device=device) * 255.0
+        field = torch.nn.functional.interpolate(coarse, size=(int(h), int(w)), mode="bilinear", align_corners=False)
+        noise = torch.randn((1, 3, int(h), int(w)), generator=gen, device=device) * 8.0
+        px = (field + noise).clamp_(0.0, 255.0).round_().to(torch.uint8)
+        out.append(px[0].permute(1, 2, 0).contiguous().cpu().numpy())
+    return out
 

@@ -9,8 +9,10 @@ the trace into: device time by kernel name and by kind of copy,
 the union of the device's busy intervals inside the stretch, the part of
 the stretch in which some request was in its call (the union of the
 ``bench.<driver>.request`` spans, on any thread) and the device's busy
-time inside that part, and the idle gaps labelled by what the host was
-doing.
+time inside that part, the idle gaps labelled by what the host was
+doing, and the device time of each kernel by the span that launched it
+(the innermost span open on the launching thread when it called the
+launch, or the graph launch, that the kernel's correlation id names).
 """
 
 from __future__ import annotations
@@ -164,6 +166,7 @@ def summarize(events: List[dict]) -> Optional[dict]:
         if b > a:
             gaps[f"{s_name} / {o_name}"] += (b - a) * 1e-6
     return {
+        "kernel_by_span": _kernel_by_span(xs, dev, t0, t1),
         "window_s": (t1 - t0) * 1e-6,
         "busy_s": busy_s,
         "request_s": sum(b - a for a, b in in_call) * 1e-6,
@@ -173,6 +176,36 @@ def summarize(events: List[dict]) -> Optional[dict]:
         "copy_s": dict(copies),
         "idle_gaps": sorted(gaps.items(), key=lambda kv: -kv[1]),
     }
+
+
+def _kernel_by_span(xs: List[dict], dev: List[dict], t0: float, t1: float) -> Dict[str, List[float]]:
+    """``"<kernel>|<span>": [seconds, launches]`` of the kernels wholly
+    inside the stretch, by the innermost user span (``record_function``:
+    the program's and the benchmark's) open on the thread that launched
+    each, at the launch ("-" for none)."""
+    launch = {}
+    for e in xs:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
+            launch[e["args"]["correlation"]] = (e.get("pid"), e.get("tid"), float(e["ts"]))
+    by_thread: Dict[tuple, List[Tuple[float, dict]]] = defaultdict(list)
+    for e in dev:
+        a = float(e["ts"])
+        c = e.get("args", {}).get("correlation")
+        if e["cat"] == "kernel" and a >= t0 and a + float(e["dur"]) <= t1 and c in launch:
+            pid, tid, ts = launch[c]
+            by_thread[(pid, tid)].append((ts, e))
+    spans: Dict[tuple, List[dict]] = defaultdict(list)
+    for e in xs:
+        if e.get("cat") == "user_annotation" and e["name"] != "bench.stretch":
+            spans[(e.get("pid"), e.get("tid"))].append(e)
+    out: Dict[str, List[float]] = defaultdict(lambda: [0.0, 0])
+    for key, launched in by_thread.items():
+        launched.sort(key=lambda te: te[0])
+        for (_, e), span in zip(launched, _innermost(spans.get(key, []), [ts for ts, _ in launched])):
+            acc = out[f"{short_name(e['name'])}|{span}"]
+            acc[0] += float(e["dur"]) * 1e-6
+            acc[1] += 1
+    return dict(out)
 
 
 def _innermost(events: List[dict], times: List[float]) -> List[str]:

@@ -14,7 +14,7 @@ number compared, beside its limit. Without a CUDA device, or with fewer
 than the cell asks for, it prints no result and exits 2.
 
 ``--control 1`` runs the cell's control in the program's place (the
-reference text tower in W8A8 int8); it has to come out not correct. ``--rate``
+references in W8A8 int8); it has to come out not correct. ``--rate``
 overrides a search mix's fixed rate; it exists for the sweep that found
 that rate. The check of each change runs neither.
 """
@@ -111,9 +111,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, 
     wl = spec.workload(workload)
     cfg = spec.config(wl["config"])
     mix = spec.mix(wl["traffic"])
-    program.settle_environment(cfg)
+    program.settle_environment(cfg, spec.bench_dir)
     ctx = cell.Context(wl, cfg, mix, seed, seconds, trace, device, _process_start() if t_proc is None else t_proc,
-                       control=control, rate=rate)
+                       control=control, rate=rate, bench_dir=spec.bench_dir)
     return spec, cell.run(ctx)
 
 

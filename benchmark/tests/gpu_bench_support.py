@@ -1,6 +1,6 @@
 """A checkout of the benchmark at toy sizes for the CPU tests: the real
-harness and metric readers, a tiny CLIP configuration, two small mixes
-and a BENCHMARK.json of one cell each (``data/``), written into a
+harness and metric readers, a tiny CLIP configuration (and one with a tiny
+captioner), small mixes and a BENCHMARK.json of one cell each (``data/``), written into a
 temporary root."""
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ DATA = Path(__file__).resolve().parent / "data"
 def tiny_root(tmp: Path, extra_entries: dict = None) -> Path:
     root = Path(tmp) / "checkout"
     shutil.copytree(BENCH, root / "benchmark", ignore=shutil.ignore_patterns("tests", "__pycache__"))
-    (root / "benchmark" / "configs" / "tiny-clip.json").write_text((DATA / "tiny-clip.json").read_text())
+    for f in DATA.glob("tiny-*.json"):
+        (root / "benchmark" / "configs" / f.name).write_text(f.read_text())
     for f in (DATA / "traffic").glob("*.json"):
         (root / "benchmark" / "traffic" / f.name).write_text(f.read_text())
     spec = json.loads((DATA / "BENCHMARK.json").read_text())

@@ -45,6 +45,22 @@ def test_int8_control_is_further_than_fp32(served):
     assert float(gap.max()) > 1e-3
 
 
+def test_image_embeddings_match(served):
+    """The image tower from frames of several geometries, each side from
+    its own preprocessing: the program's fp32 resize matrices against the
+    reference's float64 ones can round a pixel to the next uint8 level."""
+    from benchmark.reference import resize
+
+    emb, tree = served
+    frames = data.make_frames([[40, 30], [30, 50], [64, 64]], 3, 9, "cpu")
+    got = emb.embed_images(frames)
+    pixels = torch.stack([resize.clip_pixels(f, CFG["vision_config"]["image_size"]) for f in frames])
+    want = ref_clip.encode_image(tree, CFG, pixels).numpy()
+    assert np.abs(got - want).max() < 1e-3
+    int8 = ref_clip.encode_image(tree, CFG, pixels, int8=True).numpy()
+    assert np.abs(int8 - want).max() > 3e-3
+
+
 def test_brute_force_topk_is_exact():
     rows = data.make_rows(300, 16, 4, "cpu")
     queries = data.make_rows(5, 16, 5, "cpu")

@@ -10,6 +10,7 @@ import sys
 import pytest
 import torch
 
+from gpu_bench_faults import answer_altered
 from gpu_bench_support import REPO, run, tiny_root
 
 
@@ -48,22 +49,6 @@ def test_control_is_not_correct(root):
     ctx, out = run(root, "tiny-search", seconds=0.3, control=True)
     assert not out["correct"]
     assert out["checks"]["emb_bias"]["value"] > out["checks"]["emb_bias"]["limit"]
-
-
-def _alter_a_result(monkeypatch):
-    from imatch_tpu_torch.index.store import VectorStore
-
-    real = VectorStore._query_impl
-
-    def altered(self, q, n, include):
-        out = real(self, q, n, include)
-        if out["ids"] and out["ids"][0]:
-            other = "img_" + format(int(out["ids"][0][0][4:], 16) ^ 1, "016x")
-            out["ids"][0][0] = other
-            out["metadatas"][0][0] = self.get(ids=[other])["metadatas"][0]
-        return out
-
-    monkeypatch.setattr(VectorStore, "_query_impl", altered)
 
 
 def _tower_fault(fault):
@@ -109,7 +94,7 @@ def _one_slot_altered(e):
 
 
 FAULTS = {
-    "search-answer-altered": _alter_a_result,
+    "search-answer-altered": answer_altered,
     "search-half-the-batch": _tower_fault(_half_the_queries),
     "search-tower-permuted": _tower_fault(_permuted),
     "search-one-slot-altered": _tower_fault(_one_slot_altered),
